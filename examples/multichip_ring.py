@@ -1,10 +1,7 @@
-"""Multi-chip particle sharding demo (runs on a virtual CPU mesh too).
+"""Multi-device particle sharding demo (runs on a virtual CPU mesh too).
 
-    NBODY_CPU_DEVICES=8 python examples/multichip_ring.py
-
-(The env knob is handled below: some environments force-register their own
-backend and ignore JAX_PLATFORMS, so the example switches platforms through
-jax.config like tests/conftest.py does.)
+    python examples/multichip_ring.py                    # all local GPUs
+    NBODY_CPU_DEVICES=8 python examples/multichip_ring.py   # virtual mesh
 """
 
 import os

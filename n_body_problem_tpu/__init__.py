@@ -1,14 +1,17 @@
-"""n_body_problem_tpu — a TPU-native gravitational N-body framework.
+"""n_body_problem_tpu — a gravitational N-body framework in JAX.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the CUDA+OpenGL
 reference simulator ``ctbfl/N_body_problem`` (see SURVEY.md): softened
 direct-sum O(N^2) gravity with multiple solver backends (pure-XLA blocked,
-MXU matmul formulation, Pallas kernels incl. the reference's symmetric
-half-pair "report method"), semi-implicit Euler / leapfrog integrators under
-``lax.scan``, the reference's four dataset formats (tipsy binary, tab, dat,
-NEMO snap), a device-side splat renderer replacing the CUDA-GL point-sprite
-pipeline, energy/momentum diagnostics, checkpoint/resume, and multi-chip
-scaling via particle sharding with ``ppermute`` ring tile exchange.
+matmul formulation, an all-pairs GPU Pallas kernel), a Barnes-Hut
+treecode, the reference's Newton's-third-law half-pair method across
+devices (``half_ring``), semi-implicit Euler /
+leapfrog integrators under ``lax.scan``, the reference's four dataset
+formats (tipsy binary, tab, dat, NEMO snap), a device-side splat renderer
+replacing the CUDA-GL point-sprite pipeline, energy/momentum diagnostics,
+checkpoint/resume, and multi-device scaling via particle sharding with
+``ppermute`` ring tile exchange. Runs on an NVIDIA GPU; the CPU runs the
+plain XLA forms (tests).
 
 Public API::
 

@@ -37,7 +37,8 @@ def _add_physics_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--g", type=float, default=None, dest="G",
                    help="gravitational constant (default 1)")
     p.add_argument("--solver", default=None,
-                   help="force solver (default auto; see `info` for choices)")
+                   help="force solver (default auto: the execution plan's "
+                        "exact solver; see `info` for choices)")
     p.add_argument("--integrator", default=None,
                    choices=["semi_implicit_euler", "leapfrog"],
                    help="(default semi_implicit_euler)")
@@ -69,7 +70,7 @@ def _load_initial_state(args):
 
         # The checkpoint's saved config is the base for resumed runs; the
         # run continues with the physics it was created with unless flags
-        # explicitly override (ADVICE r1: it used to be discarded).
+        # explicitly override.
         state, ck_cfg = load_checkpoint(args.resume)
         return state, (0.0, 0.0, 0.0), 1.0, ck_cfg
     if args.model:
@@ -83,6 +84,8 @@ def _load_initial_state(args):
 
 
 def cmd_run(args) -> int:
+    import json
+
     import numpy as np
 
     from n_body_problem_tpu import Simulation, diagnostics
@@ -100,9 +103,9 @@ def cmd_run(args) -> int:
         from n_body_problem_tpu.ops.forces import required_padding
 
         # Bracket on the PADDED body count (what Simulation will run and
-        # what the tuning table was measured at — bench.py's 20,480 leg is
-        # dataset 0's padded size), not n_real (ADVICE r3). The treecode
-        # pad multiple is 256 for every tile/src_tile combination in use.
+        # what the tuning table is keyed on — 20,480 is dataset 0's padded
+        # size), not n_real. The treecode pad multiple is 256 for every
+        # tile/src_tile combination in use.
         padded = required_padding("treecode", state.n_real, cfg.block_size)
         cfg = cfg.replace(**tuned_tree_overrides(padded))
     out = pathlib.Path(args.out)
@@ -116,8 +119,11 @@ def cmd_run(args) -> int:
         )
     else:
         sim = Simulation(cfg, state)
+    solver = getattr(sim, "solver", cfg.solver)
+    variant = getattr(sim, "tree_variant", None)
     print(
-        f"n={sim.state.n_real} (padded {sim.state.n})  solver={cfg.solver}  "
+        f"n={sim.state.n_real} (padded {sim.state.n})  solver={solver}"
+        f"{f' ({variant} path)' if variant else ''}  "
         f"integrator={cfg.integrator}  dt={cfg.dt}", file=sys.stderr,
     )
     if args.diag_every:
@@ -152,6 +158,7 @@ def cmd_run(args) -> int:
     block = min([args.steps_per_block] + intervals)
     done = 0
     frame_idx = 0
+    last_diag = None
     try:
         with trace(out / "profile" if args.profile else None):
             while done < args.steps:
@@ -182,6 +189,8 @@ def cmd_run(args) -> int:
                 if args.diag_every and done % args.diag_every < todo:
                     d = sim.diagnostics()
                     drift = (d["energy"] - e0) / abs(e0) if e0 else 0.0
+                    last_diag = dict(step=done, energy=d["energy"],
+                                     drift=drift, overspeed=d["overspeed"])
                     print(
                         f"[step {done}] E={d['energy']:.6e} drift={drift:+.2e} "
                         f"overspeed={d['overspeed']}", file=sys.stderr,
@@ -203,8 +212,16 @@ def cmd_run(args) -> int:
     save_checkpoint(out / "final.npz", sim.state, cfg)
     if args.export_snap:
         export_snap(out / "final.snap", sim.state)
-    s = timer.snapshot(reset=False) if timer.total_steps else {}
     wall = timer.total_time
+    vmax = cfg.vmax_guard if cfg.vmax_guard > 0 else 10.0
+    (out / "run.json").write_text(json.dumps({
+        "n": sim.state.n_real, "n_padded": sim.state.n, "steps": done,
+        "solver": solver, "tree_variant": variant,
+        "wall_s": wall, "ms_per_step": wall / max(done, 1) * 1e3,
+        "overspeed": int(diagnostics.overspeed_count(sim.state, vmax)),
+        "last_diagnostics": last_diag,
+        "config": sim.cfg.to_dict(),
+    }, indent=1))
     print(
         f"done: {args.steps} steps in {wall:.2f}s "
         f"({sim.pairs_per_step() * args.steps / max(wall, 1e-9):.3e} pairs/s); "
@@ -217,6 +234,7 @@ def cmd_info(args) -> int:
     import jax
 
     from n_body_problem_tpu import __version__
+    from n_body_problem_tpu.plan import execution_plan
     from n_body_problem_tpu.config import INTEGRATORS, SOLVERS
     from n_body_problem_tpu.io.datasets import DATASETS
     from n_body_problem_tpu.io import native
@@ -224,6 +242,7 @@ def cmd_info(args) -> int:
 
     print(f"n_body_problem_tpu {__version__}")
     print(f"backend: {jax.default_backend()}  devices: {jax.devices()}")
+    print(f"plan: {execution_plan()}")
     print(f"native io: {'available' if native.available() else 'python fallback'}")
     print(f"solvers: {', '.join(SOLVERS)}")
     print(f"integrators: {', '.join(INTEGRATORS)}")
@@ -353,7 +372,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    from n_body_problem_tpu.utils.cache import enable_compile_cache
+
     args = build_parser().parse_args(argv)
+    enable_compile_cache()
     try:
         return args.fn(args)
     except FileNotFoundError as e:

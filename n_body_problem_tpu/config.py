@@ -16,30 +16,28 @@ from typing import Any
 
 def resolve_vip_tiles(vip_tiles: int, n: int) -> int:
     """-1 (auto) -> clamp(n // 2048, 16, 128) 32-body VIP units: ~n/64
-    exact-evaluated halo bodies, the measured cost/error optimum from
-    32,768 to 524,288 (a fixed 4,096-body budget was 10% of the step at
-    N=65,536 for no error gain)."""
+    exact-evaluated halo bodies (an algorithm default chosen for its
+    cost/error balance from 32,768 to 524,288 bodies; not yet tuned on
+    the GPU)."""
     if vip_tiles != -1:
         return vip_tiles
     return max(16, min(128, n // 2048))
 
 
 def tuned_tree_overrides(n: int) -> dict[str, Any]:
-    """Measured per-N treecode overrides (one v5e, 2026-08-18 sweep,
-    ``tools/tune_small_n.py``; defaults stay untouched — callers opt in
-    via ``SimConfig(solver="treecode", **tuned_tree_overrides(n))``,
-    the CLI's ``--tree-tuned``, or bench.py's small-N legs).
+    """Per-N treecode overrides for small N (defaults stay untouched —
+    callers opt in via ``SimConfig(solver="treecode",
+    **tuned_tree_overrides(n))``, the CLI's ``--tree-tuned``, or
+    ``tools/tune_small_n.py``). Algorithm defaults, not yet tuned on the
+    GPU (``tools/tune_small_n.py`` re-runs the sweep there).
 
     Below ~32k bodies the flat-path near/far balance shifts: the
-    32-body source tile halves near pair work for +44% (cheap) far
-    evals and a 32-step rebuild cadence amortizes the (relatively
-    large at small N) build. At the reference's own N=20,480 a looser
-    tau (5e-4) additionally stays inside the ~1e-3 p99 class of the
-    flagship legs (measured 1.15e-3) for 2.57 -> 1.79 ms/step; at
-    24k-32k the same tau measured ~4e-3 p99, so that bracket keeps
-    the default tau (0.93x baseline at 24,576, p99 1.7e-3). Large N
-    keeps the tuned defaults entirely (the sweep's tile/tau/src
-    changes regressed there — src32 at 262k: 76.3 vs 72.6 ms/step).
+    32-body source tile halves near pair work for +44% far evaluations
+    and a 32-step rebuild cadence amortizes the (relatively large at
+    small N) build. At the reference's own N=20,480 a looser tau (5e-4)
+    stays inside the ~1e-3 p99 force-error class (1.15e-3 measured);
+    at 24k-32k the same tau gave ~4e-3 p99, so that bracket keeps the
+    default tau. Large N keeps the defaults.
     """
     if n <= 20480:
         return {"tree_src_tile": 32, "tree_mac_tau": 5e-4,
@@ -51,12 +49,11 @@ def tuned_tree_overrides(n: int) -> dict[str, Any]:
 
 
 SOLVERS = (
-    "auto",        # pallas on TPU, mxu elsewhere
+    "auto",        # the execution plan's exact solver (n_body_problem_tpu.plan)
     "direct",      # one-shot jnp O(N^2); the serial ground truth (kernel.cu:891-923 role)
     "blocked",     # lax.map over row blocks; memory-safe pure-XLA O(N^2)
-    "mxu",         # matmul formulation: Gram-matrix r^2 + W@P accumulation on the MXU
-    "pallas",      # Pallas blocked all-pairs kernel (kernel.cu:828-884 role, TPU-native)
-    "pallas_symmetric",  # Pallas half-pair symmetric kernel (the report's method, kernel.cu:703-774 role)
+    "mxu",         # matmul formulation: W @ [P, 1] force accumulation (float32, HIGHEST precision)
+    "pallas",      # all-pairs GPU kernel, Pallas/Triton (kernel.cu:828-884 role)
     "treecode",    # Barnes-Hut on the Morton tiling: beyond-brute-force, ~1e-4 median force error
     "pair_matrix", # dev-history Method A foil (project_develop_code.cu:657-861); small N only
 )
@@ -91,22 +88,20 @@ class SimConfig:
 
     # --- execution ---
     block_size: int = 256      # row-chunk for blocked/mxu solvers (BLOCK_SIZE analogue)
-    pallas_tile_i: int = 256   # Pallas row tile (sublane dim)
-    pallas_tile_j: int = 1024  # Pallas column tile (lane dim)
-    pallas_sym_tile: int = 512          # symmetric-kernel square tile
-    pallas_sym_precision: str = "f32"   # "f32" exact | "bf16x3" fast-math
+    pallas_tile_i: int = 64    # all-pairs kernel: target bodies per program
+    pallas_tile_j: int = 64    # all-pairs kernel: source bodies per loop step
     # --- treecode solver (ops/treecode.py; requires Morton-sorted bodies,
     # Simulation auto-enables morton_sort for it) ---
     tree_tile: int = 0         # target-row Morton tile (output granularity);
                                # 0 = auto: 128 on the hierarchical flat path
                                # (near-work is flat in the row size there —
-                               # measured — and wide rows feed the far
-                               # kernel), 32 otherwise
+                               # measured — and wide rows amortize each far
+                               # node fetch), 32 otherwise
     tree_src_tile: int = 64    # SOURCE tile of the flat path (asymmetric
                                # acceptance: bigger sources shrink the
                                # bookkeeping, thicken the exact near shell;
-                               # 64 measured fastest at N=262k with p99
-                               # error equal to 128's on the same state)
+                               # 64 gives p99 error equal to 128's on the
+                               # same state at half the near work)
     tree_theta: float = 0.55   # geometric opening angle (used when
                                # tree_mac_tau == 0)
     tree_mac_tau: float = 2e-4 # mass-aware MAC tolerance: open a source
@@ -120,18 +115,18 @@ class SimConfig:
     tree_vip_tiles: int = -1   # largest-radius tiles evaluated exactly,
                                # counted in 32-body units (see
                                # ops.treecode._vip_src_tiles). -1 = auto:
-                               # clamp(N // 2048, 16, 128) — the measured
-                               # optimum ~N/64 exact bodies (65k sweep:
-                               # 1,024 bodies beat 4,096 by 1.3 ms/step at
-                               # equal p99). 0 disables the VIP split.
+                               # clamp(N // 2048, 16, 128), ~N/64 exact
+                               # bodies (config.resolve_vip_tiles).
+                               # 0 disables the VIP split.
     tree_rebuild_every: int = 8   # device re-sort + acceptance rebuild
                                   # cadence inside Simulation.run (near
                                   # counts grow ~12% over 8 steps; the
                                   # suggest_max_near margin covers it)
     tree_near_slack: int = 8   # extra exact SOURCE tiles per target (flat
                                # path headroom for inter-rebuild drift)
-    tree_flat_cap: int = 0     # compacted work-list capacity; 0 = auto on
-                               # TPU (mean-bound near cost), -1 = disable
+    tree_flat_cap: int = 0     # compacted work-list capacity; 0 = auto
+                               # where the execution plan plans the lists
+                               # (the GPU), -1 = disable
     tree_hier: bool = True     # multi-level far field on the flat path:
                                # binary merge hierarchy + compacted far
                                # lists + octupole-bound MAC (round 3); off
@@ -177,11 +172,6 @@ class SimConfig:
             # eps2 = 0 turns the self-pair into 0 * inf = NaN; the reference
             # relies on EPSILON > 0 for the same reason (kernel.cu:66, 679).
             raise ValueError("eps2 must be > 0")
-        if self.pallas_sym_precision not in ("f32", "bf16x3", "mixed"):
-            raise ValueError(
-                f"unknown pallas_sym_precision {self.pallas_sym_precision!r}; "
-                "expected 'f32', 'bf16x3' or 'mixed'"
-            )
         if not (0.0 < self.tree_theta <= 1.0):
             raise ValueError(f"tree_theta must be in (0, 1], got {self.tree_theta}")
         if self.tree_max_near < 0 or self.tree_vip_tiles < -1:

@@ -1,7 +1,7 @@
 // Fast ASCII table parser for the dataset loaders.
 //
 // The reference's loaders are native C++ (ifstream + istringstream per line,
-// kernel.cu:305-556); this is the TPU framework's native equivalent, built
+// kernel.cu:305-556); this is the framework's native equivalent, built
 // for throughput: one read() of the whole file, strtof over the buffer, no
 // per-line stream objects. A ~100k-line snap/tab/dat file parses in
 // milliseconds instead of the seconds the pure-Python fallback needs.

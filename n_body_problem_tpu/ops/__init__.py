@@ -4,7 +4,7 @@ from n_body_problem_tpu.ops.forces import (
     mxu_acc,
     pair_accel_tile,
 )
-from n_body_problem_tpu.ops.registry import make_force_fn, resolve_solver
+from n_body_problem_tpu.ops.registry import make_force_fn
 from n_body_problem_tpu.ops import integrators
 
 __all__ = [
@@ -13,6 +13,5 @@ __all__ = [
     "mxu_acc",
     "pair_accel_tile",
     "make_force_fn",
-    "resolve_solver",
     "integrators",
 ]

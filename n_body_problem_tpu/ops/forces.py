@@ -23,11 +23,13 @@ Three backends, all returning ``acc (N, 3)`` float32:
   ``kernel.cu:891-923``).
 - :func:`blocked_acc`  — ``lax.map`` over row blocks; O(B*N) live memory, the
   pure-XLA production path (role of VERSION 1, ``kernel.cu:828-884``).
-- :func:`mxu_acc`      — matmul formulation that moves the distance Gram
-  matrix and the force accumulation onto the TPU MXU, leaving only
-  rsqrt/cube on the VPU. Fastest XLA path on TPU; slightly different
-  rounding (|p_i|^2 + |p_j|^2 - 2 p_i.p_j cancellation) — softening keeps it
-  well-conditioned, validated against direct_acc in tests.
+- :func:`mxu_acc`      — matmul formulation: the force accumulation as one
+  ``W @ [P, 1]`` matrix product per row block (float32,
+  ``Precision.HIGHEST``: a TF32 product would wreck the cancellation between
+  its two terms), validated against direct_acc in tests.
+
+No other solver here uses a matrix product: every reduction over pairs is
+an elementwise product followed by a sum, exact float32 on every platform.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ __all__ = ["direct_acc", "blocked_acc", "mxu_acc", "pair_accel_tile"]
 def _coef(mass_j: jax.Array, r2: jax.Array, eps2: float, c2: float, Gc3: float) -> jax.Array:
     """Per-pair scalar weight w_ij = G * m_j * c^3 * rsqrt(c^2 r2 + eps2)^3.
 
-    ``acc_i = sum_j w_ij * (p_j - p_i)``. Computed on the VPU; ``rsqrt``
+    ``acc_i = sum_j w_ij * (p_j - p_i)``. Elementwise; ``rsqrt``
     mirrors the reference's ``rsqrtf`` (kernel.cu:682).
     """
     inv = lax.rsqrt(c2 * r2 + eps2)
@@ -64,17 +66,19 @@ def pair_accel_tile(
 ) -> jax.Array:
     """Acceleration of each body in tile I due to every body in tile J.
 
-    The shared building block for the blocked solver and the multi-chip ring
-    (one visiting tile per ring step). Broadcast formulation: (I,1,3)-(1,J,3).
+    The shared building block for the blocked solver and the multi-device
+    ring (one visiting tile per ring step). Componentwise broadcast
+    formulation, (I, 1) - (1, J) per coordinate; the reductions are sums of
+    elementwise products, never a matrix product.
     """
     c2 = compensate * compensate
     Gc3 = G * c2 * compensate
-    d = pos_j[None, :, :] - pos_i[:, None, :]          # (I, J, 3)
-    r2 = jnp.sum(d * d, axis=-1)                       # (I, J)
-    w = _coef(mass_j[None, :], r2, eps2, c2, Gc3)      # (I, J)
-    # HIGHEST keeps the contraction in full f32 if XLA routes it to the MXU
-    # (TPU matmuls otherwise default to bf16 passes).
-    return jnp.einsum("ij,ijk->ik", w, d, precision=lax.Precision.HIGHEST)
+    dx = pos_j[None, :, 0] - pos_i[:, 0:1]             # (I, J)
+    dy = pos_j[None, :, 1] - pos_i[:, 1:2]
+    dz = pos_j[None, :, 2] - pos_i[:, 2:3]
+    w = _coef(mass_j[None, :], dx * dx + dy * dy + dz * dz, eps2, c2, Gc3)
+    return jnp.stack([jnp.sum(w * dx, axis=1), jnp.sum(w * dy, axis=1),
+                      jnp.sum(w * dz, axis=1)], axis=1)
 
 
 def pair_accel_tile_symmetric(
@@ -96,13 +100,13 @@ def pair_accel_tile_symmetric(
     """
     c2 = compensate * compensate
     Gc3 = G * c2 * compensate
-    d = pos_j[None, :, :] - pos_i[:, None, :]          # (I, J, 3)
-    r2 = jnp.sum(d * d, axis=-1)
-    inv = lax.rsqrt(c2 * r2 + eps2)
+    d = [pos_j[None, :, c] - pos_i[:, c:c + 1] for c in range(3)]  # (I, J)
+    inv = lax.rsqrt(c2 * (d[0] * d[0] + d[1] * d[1] + d[2] * d[2]) + eps2)
     u = (Gc3) * (inv * inv * inv)                      # (I, J) mass-free
-    hp = lax.Precision.HIGHEST
-    acc_i = jnp.einsum("ij,ijk->ik", u * mass_j[None, :], d, precision=hp)
-    acc_j = -jnp.einsum("ij,ijk->jk", u * mass_i[:, None], d, precision=hp)
+    a = u * mass_j[None, :]
+    b = u * mass_i[:, None]
+    acc_i = jnp.stack([jnp.sum(a * dc, axis=1) for dc in d], axis=1)
+    acc_j = jnp.stack([-jnp.sum(b * dc, axis=0) for dc in d], axis=1)
     return acc_i, acc_j
 
 
@@ -132,7 +136,7 @@ def blocked_acc(
     Each chunk of ``block_size`` "row" bodies sweeps the full body list —
     the same tiling shape as the reference's VERSION 1 shared-memory kernel
     (``simple_update_all``, ``kernel.cu:828-884``) with XLA doing the
-    VMEM staging. N must be a multiple of ``block_size`` (pad first).
+    staging. N must be a multiple of ``block_size`` (pad first).
     """
     n = pos.shape[0]
     if n % block_size:
@@ -156,19 +160,18 @@ def mxu_acc(
     G: float = 1.0,
     block_size: int = 1024,
 ) -> jax.Array:
-    """MXU-assisted direct sum: broadcast r^2 on the VPU, force accumulation
-    as one matmul on the MXU.
+    """Matmul-assisted direct sum: broadcast r^2 elementwise, force
+    accumulation as one matrix product.
 
     Per row block I (``lax.map`` over blocks):
 
       1. ``dx, dy, dz`` and ``r2`` per coordinate via broadcasting — robust
          (no Gram-matrix ``|p_i|^2 + |p_j|^2 - 2 p_i.p_j`` cancellation,
          which is catastrophic for well-separated bodies in fp32).
-      2. ``w_ij``: rsqrt + cube on the VPU.
+      2. ``w_ij``: rsqrt + cube, elementwise.
       3. ``acc_i = S_i[:3] - p_i * S_i[3]`` where ``S = W @ [P, 1]`` — the
          ``sum_j w_ij p_j`` and ``sum_j w_ij`` reductions fold into a single
-         MXU matmul, replacing the 6 multiply/reduce VPU ops per pair of the
-         broadcast formulation. The self-pair is masked out because its huge
+         matrix product. The self-pair is masked out because its huge
          ``w_ii`` only cancels analytically between the two S terms.
     """
     n = pos.shape[0]
@@ -192,17 +195,18 @@ def mxu_acc(
         dy = y[None, :] - pos_i[:, 1:2]
         dz = z[None, :] - pos_i[:, 2:3]
         r2 = dx * dx + dy * dy + dz * dz
-        w = _coef(mass[None, :], r2, eps2, c2, Gc3)    # (B, N) VPU
+        w = _coef(mass[None, :], r2, eps2, c2, Gc3)    # (B, N)
         # Zero self-pairs AND coincident pairs: d = 0 means the physical
         # contribution is exactly zero, but the huge w would cancel only
         # analytically between the two S terms below, wrecking fp32.
         w = jnp.where(
             jnp.logical_or(idx_i[:, None] == idx[None, :], r2 == 0.0), 0.0, w
         )
-        # HIGHEST: TPU f32 matmuls default to one bf16 MXU pass; the S terms
-        # cancel against each other, so bf16 rounding here is catastrophic.
+        # HIGHEST = full float32: the default may run as TF32 (or bf16)
+        # passes, and the S terms cancel against each other, so reduced
+        # mantissas here are catastrophic.
         s = jnp.dot(w, p_ext, preferred_element_type=jnp.float32,
-                    precision=lax.Precision.HIGHEST)   # (B, 4) MXU
+                    precision=lax.Precision.HIGHEST)   # (B, 4)
         return s[:, :3] - pos_i * s[:, 3:4]
 
     return lax.map(chunk, (rows, idx_rows)).reshape(n, 3)
@@ -214,22 +218,18 @@ def required_padding(
     block_size: int,
     tile_i: int = 256,
     tile_j: int = 1024,
-    sym_tile: int = 512,
     tree_tile: int = 32,
-    tree_src_tile: int = 64,  # = treecode.DEFAULT_SRC_TILE (ADVICE r2: the
-                              # old 128 default padded for the wrong source
-                              # granularity)
+    tree_src_tile: int = 64,  # = treecode.DEFAULT_SRC_TILE
 ) -> int:
-    """Padded body count a solver needs for N bodies."""
+    """Padded body count a solver needs for N bodies (``solver`` is a
+    concrete one: resolve ``"auto"`` through the execution plan first)."""
     if solver in ("blocked", "mxu"):
         return round_up(n, block_size)
-    if solver in ("pallas", "auto"):
+    if solver == "pallas":
         return round_up(n, math.lcm(tile_i, tile_j))
-    if solver == "pallas_symmetric":
-        return round_up(n, sym_tile)
     if solver == "treecode":
-        # lcm with 256: the VIP dense sweeps run through pallas_block_acc
-        # whose row tiling wants a 256-multiple on TPU; the flat path also
+        # lcm with 256: the VIP sweeps run through the all-pairs kernel,
+        # whose tiles want power-of-two body counts; the flat path also
         # needs whole source tiles.
         return round_up(n, math.lcm(tree_tile, tree_src_tile, 256))
     return n

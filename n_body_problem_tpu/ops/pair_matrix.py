@@ -13,8 +13,8 @@ the arithmetic.
 
 This reimplementation exists as the runnable perf-history foil, NOT a
 production path: it materializes the same strict-upper-triangle force
-array (here scatter-reduced with ``segment_sum`` — the TPU has no atomics
-and gathers of ragged rows are worse) and loses to every other solver for
+array (here scatter-reduced with ``segment_sum``; gathers of ragged rows
+are worse) and loses to every other solver for
 the same reason the CUDA version did: N(N-1)/2 * 16 bytes of HBM traffic
 per step where the streaming kernels touch O(N). Memory, not FLOPs, is
 the budget: N = 32k already materializes ~6.4 GB/step of intermediate
@@ -69,8 +69,8 @@ def pair_matrix_acc(
     f = (gc3 * mass[iu] * mass[ju] * inv * inv * inv)[:, None] * d  # (P, 3)
 
     # Reduce the matrix: force on i is +sum over its row, on j the
-    # reaction. segment_sum is the TPU-native stand-in for the reference's
-    # per-row gather loop (add_up_gravity).
+    # reaction. segment_sum stands in for the reference's per-row gather
+    # loop (add_up_gravity).
     acc_i = jax.ops.segment_sum(f, iu, num_segments=n)
     acc_j = jax.ops.segment_sum(f, ju, num_segments=n)
     force = acc_i - acc_j                                   # (N, 3)

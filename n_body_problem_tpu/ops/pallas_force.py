@@ -1,93 +1,124 @@
-"""Pallas TPU force kernel: blocked all-pairs softened gravity.
+"""All-pairs softened gravity as a Pallas kernel for the GPU (Triton).
 
-TPU-native re-design of the reference's tiled shared-memory kernels
-(VERSION 1 ``simple_update_all`` at ``kernel.cu:828-884`` and the spirit of
-VERSION 3 at ``kernel.cu:703-774``): a row block of bodies stays resident in
-VMEM registers while column tiles of (position, mass) stream through, exactly
-as the CUDA kernel streams 256-body tiles through shared memory — but with
-the Pallas pipeline doing the double-buffered HBM->VMEM staging and the VPU
-doing 8x128-lane pair math instead of one thread per body.
+The reference's VERSION 1 design (``simple_update_all``,
+``kernel.cu:828-884``): a program owns ``tile_i`` target bodies, keeps
+them in registers, and streams the source bodies through in
+``tile_j``-wide tiles, with the partial sums carried by a loop inside the
+program (no cross-program reduction, no atomics: the result is the same
+bit for bit from run to run). ``num_stages`` pipelines the source loads.
 
-Layout: coordinates are passed as column vectors ``(N, 1)`` for the row
-bodies (sublane axis) and row vectors ``(1, N)`` for the column bodies (lane
-axis), so the (TI, TJ) pair tile is a pure broadcast — no transposes inside
-the kernel. Per-lane partial force sums accumulate in a VMEM scratch
-``(TI, TJ)`` across the inner grid axis and are lane-reduced once per row
-block. There are no atomics anywhere — the TPU replacement for the
-reference's ``atomicAdd3`` accumulation (``kernel.cu:695-699``) is this
-grid-axis accumulation.
+One kernel serves the exact solver (:func:`pallas_acc`), the ring stage
+of the sharded exact solvers (resident block against the visiting block,
+``parallel/ring.py``) and both halves of the treecode's VIP sweep. When
+the rows are few (the VIP reaction) the columns split across programs
+and the partial sums are added afterwards, in a fixed order.
 
-~15 VPU ops per pair (6 distance, 1 fused scale+eps, rsqrt, 2 cube, 1 mass,
-3 accumulate fma, amortized reduce), fp32 throughout; masses are
-pre-multiplied by G*c^3 on the host so the kernel never multiplies
-constants.
+Pair math per (i, j), float32 throughout, no matmul anywhere:
+
+    d = p_j - p_i;  w = m_j G c^3 rsqrt(c^2 |d|^2 + eps2)^3;  a_i += w d
+
+(subtract first, scale the squared distance after: ``c`` = 0.1 is not a
+power of two, so pre-scaling coordinates would round them before the
+cancellation). Masses are pre-multiplied by G c^3 outside the kernel.
 """
 
 from __future__ import annotations
 
 import functools
-import math
 
 import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-DEFAULT_TILE_I = 256
-DEFAULT_TILE_J = 1024
+DEFAULT_TILE_I = 64
+DEFAULT_TILE_J = 64
+NUM_WARPS = 4
+NUM_STAGES = 3
 
 
-def _force_kernel(
-    xi_ref, yi_ref, zi_ref,      # (TI, 1) row-body coordinates
-    xj_ref, yj_ref, zj_ref,      # (1, TJ) column-body coordinates
-    mj_ref,                      # (1, TJ) column masses, pre-scaled by G*c^3
-    out_ref,                     # (TI, 8) accelerations in lanes 0..2
-    acc_x, acc_y, acc_z,         # (TI, TJ) VMEM per-lane partial sums
-    *,
-    c2: float,
-    eps2: float,
-):
-    j = pl.program_id(1)
-    nj = pl.num_programs(1)
+MIN_PROGRAMS = 512       # ~4 programs per SM of an H100 (132 SMs)
 
-    # Subtract FIRST, scale after: fl(c*x) - fl(c*x') would round the
-    # coordinates before cancellation and wreck close-pair separations
-    # (c = 0.1 is not a power of two). The compensate scale applies to the
-    # squared distance instead — algebraically identical to the reference's
-    # d*c pre-scale (kernel.cu:672-679), numerically strictly better.
-    dx = xj_ref[:] - xi_ref[:]   # (TI, TJ) broadcast
-    dy = yj_ref[:] - yi_ref[:]
-    dz = zj_ref[:] - zi_ref[:]
-    r2 = dx * dx + dy * dy + dz * dz
-    inv = lax.rsqrt(r2 * c2 + eps2)
-    w = mj_ref[:] * (inv * inv * inv)
-    # Self-pairs and zero-mass padding need no mask: d = 0 or m = 0 => 0.
 
-    @pl.when(j == 0)
-    def _():
-        acc_x[...] = w * dx
-        acc_y[...] = w * dy
-        acc_z[...] = w * dz
+def _pair_kernel(xi_ref, yi_ref, zi_ref, xj_ref, yj_ref, zj_ref, mj_ref,
+                 ax_ref, ay_ref, az_ref, *, c2: float, eps2: float,
+                 tile_j: int, n_tiles: int):
+    xi = xi_ref[...][:, None]                       # (TI, 1)
+    yi = yi_ref[...][:, None]
+    zi = zi_ref[...][:, None]
 
-    @pl.when(j > 0)
-    def _():
-        acc_x[...] += w * dx
-        acc_y[...] += w * dy
-        acc_z[...] += w * dz
+    def body(j, acc):
+        sx, sy, sz = acc
+        o = pl.multiple_of(j * tile_j, tile_j)
+        dx = xj_ref[pl.ds(o, tile_j)][None, :] - xi     # (TI, TJ)
+        dy = yj_ref[pl.ds(o, tile_j)][None, :] - yi
+        dz = zj_ref[pl.ds(o, tile_j)][None, :] - zi
+        inv = lax.rsqrt((dx * dx + dy * dy + dz * dz) * c2 + eps2)
+        w = mj_ref[pl.ds(o, tile_j)][None, :] * (inv * inv * inv)
+        return sx + w * dx, sy + w * dy, sz + w * dz
 
-    @pl.when(j == nj - 1)
-    def _():
-        ti = out_ref.shape[0]
-        sx = jnp.sum(acc_x[...], axis=1, keepdims=True)
-        sy = jnp.sum(acc_y[...], axis=1, keepdims=True)
-        sz = jnp.sum(acc_z[...], axis=1, keepdims=True)
-        pad = jnp.zeros((ti, 5), dtype=out_ref.dtype)
-        out_ref[:] = jnp.concatenate([sx, sy, sz, pad], axis=1)
+    j0 = pl.program_id(1) * n_tiles
+    zero = jnp.zeros((xi.shape[0], tile_j), jnp.float32)
+    sx, sy, sz = lax.fori_loop(j0, j0 + n_tiles, body, (zero, zero, zero))
+    ax_ref[...] = jnp.sum(sx, axis=1)
+    ay_ref[...] = jnp.sum(sy, axis=1)
+    az_ref[...] = jnp.sum(sz, axis=1)
+
+
+def _column_splits(row_blocks: int, col_tiles: int) -> int:
+    """Power-of-two number of column ranges per row block, so that a few
+    row blocks (the VIP reaction: 4,096 rows against every body) still
+    give the card enough programs."""
+    splits = 1
+    while row_blocks * splits < MIN_PROGRAMS and col_tiles % (2 * splits) == 0:
+        splits *= 2
+    return splits
+
+
+def pair_block_cols(xi, yi, zi, xj, yj, zj, scaled_mj, *, eps2: float,
+                    c2: float, tile_i: int = DEFAULT_TILE_I,
+                    tile_j: int = DEFAULT_TILE_J, splits: int | None = None,
+                    interpret: bool = False):
+    """Columnar core: (ax, ay, az) of the row bodies due to the column
+    bodies, masses already scaled by G c^3. Rows must divide ``tile_i``
+    and columns ``tile_j`` (both powers of two).
+
+    With few row blocks the columns are cut into ``splits`` ranges
+    (default: :func:`_column_splits`), one program each; their partial
+    sums are added in XLA in a fixed order (still no atomics)."""
+    ni, nj = xi.shape[0], xj.shape[0]
+    if ni % tile_i or nj % tile_j:
+        raise ValueError(
+            f"pair kernel: Ni={ni} must be a multiple of tile_i={tile_i} "
+            f"and Nj={nj} of tile_j={tile_j}; pad the state first")
+    if splits is None:
+        splits = _column_splits(ni // tile_i, nj // tile_j)
+    f32 = jnp.float32
+    row = pl.BlockSpec((tile_i,), lambda i, s: (i,))
+    part = pl.BlockSpec((None, tile_i), lambda i, s: (s, i))
+    whole = pl.no_block_spec
+    out = jax.ShapeDtypeStruct((splits, ni), f32)
+    parts = pl.pallas_call(
+        functools.partial(_pair_kernel, c2=float(c2), eps2=float(eps2),
+                          tile_j=tile_j, n_tiles=nj // tile_j // splits),
+        grid=(ni // tile_i, splits),
+        in_specs=[row, row, row, whole, whole, whole, whole],
+        out_specs=[part, part, part],
+        out_shape=[out, out, out],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=NUM_STAGES),
+        interpret=interpret,
+        name="nbody_pair",
+    )(*(a.astype(f32) for a in (xi, yi, zi, xj, yj, zj, scaled_mj)))
+    return tuple(jnp.sum(p, axis=0) for p in parts)
 
 
 @functools.partial(
-    jax.jit, static_argnames=("eps2", "compensate", "G", "tile_i", "tile_j", "interpret")
+    jax.jit,
+    static_argnames=("eps2", "compensate", "G", "tile_i", "tile_j",
+                     "interpret"),
 )
 def pallas_block_acc(
     pos_i: jax.Array,
@@ -99,60 +130,21 @@ def pallas_block_acc(
     G: float = 1.0,
     tile_i: int = DEFAULT_TILE_I,
     tile_j: int = DEFAULT_TILE_J,
-    interpret: bool | None = None,
+    interpret: bool = False,
 ) -> jax.Array:
-    """acc (Ni, 3) of the row-block bodies due to every column-block body.
+    """acc (Ni, 3) of the row bodies due to every column body.
 
-    The general block-pair form: ``pos_i`` and ``pos_j`` may be the same
-    array (the classic all-pairs solve, :func:`pallas_acc`) or different
-    blocks — the latter is the multi-chip ring's local tile operation
-    (resident bodies vs the visiting packet). Ni must divide by ``tile_i``
-    and Nj by ``tile_j``.
+    ``pos_i`` and ``pos_j`` may be the same array (the all-pairs solve,
+    :func:`pallas_acc`) or different blocks (a ring stage: resident
+    bodies against the visiting block).
     """
-    ni = pos_i.shape[0]
-    nj = pos_j.shape[0]
-    if ni % tile_i or nj % tile_j:
-        raise ValueError(
-            f"pallas_block_acc: Ni={ni} must divide tile_i={tile_i} and "
-            f"Nj={nj} tile_j={tile_j}; pad the state first"
-        )
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-
-    f32 = jnp.float32
     c2 = compensate * compensate
-    pos_i = pos_i.astype(f32)
-    pos_j = pos_j.astype(f32)
-    xi = pos_i[:, 0:1]
-    yi = pos_i[:, 1:2]
-    zi = pos_i[:, 2:3]
-    xj = pos_j[:, 0].reshape(1, nj)
-    yj = pos_j[:, 1].reshape(1, nj)
-    zj = pos_j[:, 2].reshape(1, nj)
-    mj = (mass_j.astype(f32) * f32(G * c2 * compensate)).reshape(1, nj)
-
-    grid = (ni // tile_i, nj // tile_j)
-    col = lambda ti: pl.BlockSpec((ti, 1), lambda i, j: (i, 0), memory_space=pltpu.VMEM)
-    row = lambda tj: pl.BlockSpec((1, tj), lambda i, j: (0, j), memory_space=pltpu.VMEM)
-
-    out = pl.pallas_call(
-        functools.partial(_force_kernel, c2=float(c2), eps2=float(eps2)),
-        grid=grid,
-        in_specs=[
-            col(tile_i), col(tile_i), col(tile_i),
-            row(tile_j), row(tile_j), row(tile_j), row(tile_j),
-        ],
-        out_specs=pl.BlockSpec((tile_i, 8), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((ni, 8), f32),
-        scratch_shapes=[pltpu.VMEM((tile_i, tile_j), f32)] * 3,
-        cost_estimate=pl.CostEstimate(
-            flops=15 * ni * nj,
-            bytes_accessed=(3 * ni + 4 * nj) * 4 + ni * 8 * 4,
-            transcendentals=ni * nj,
-        ),
-        interpret=interpret,
-    )(xi, yi, zi, xj, yj, zj, mj)
-    return out[:, :3]
+    scaled = mass_j.astype(jnp.float32) * jnp.float32(G * c2 * compensate)
+    ax, ay, az = pair_block_cols(
+        pos_i[:, 0], pos_i[:, 1], pos_i[:, 2],
+        pos_j[:, 0], pos_j[:, 1], pos_j[:, 2], scaled,
+        eps2=eps2, c2=c2, tile_i=tile_i, tile_j=tile_j, interpret=interpret)
+    return jnp.stack([ax, ay, az], axis=1)
 
 
 def pallas_acc(pos: jax.Array, mass: jax.Array, **kw) -> jax.Array:

@@ -1,10 +1,9 @@
 """Solver registry: config -> force function.
 
 The reference selects its solver at compile time via ``#define VERSION``
-(``kernel.cu:70-73``). Here ``SimConfig.solver`` picks a backend at trace
-time; ``"auto"`` resolves to the Pallas kernel on TPU and the MXU matmul
-formulation elsewhere (the Pallas kernels also run everywhere via the
-interpreter, but only for tests).
+(``kernel.cu:70-73``). Here ``SimConfig.solver`` picks one at trace time;
+``"auto"`` and the form of each stage come from the execution plan
+(:mod:`n_body_problem_tpu.plan`).
 """
 
 from __future__ import annotations
@@ -15,45 +14,23 @@ import jax
 
 from n_body_problem_tpu.config import SimConfig
 from n_body_problem_tpu.ops import forces
+from n_body_problem_tpu.plan import ExecutionPlan, execution_plan
 
 ForceFn = Callable[[jax.Array, jax.Array], jax.Array]
 
 
-# Largest N validated for the whole-problem-VMEM-resident symmetric kernel
-# on one v5e (547.7 ms/step at 262,144; see STATUS.md). Above this, `auto`
-# falls back to the streamed blocked kernel whose VMEM use is O(tile).
-SYMMETRIC_RESIDENT_CAP = 262_144
-
-
-def resolve_solver(solver: str, backend: str | None = None,
-                   n: int | None = None) -> str:
-    """Resolve ``"auto"`` to a concrete solver name.
-
-    On TPU the flagship is the symmetric half-pair kernel whenever the body
-    count fits its VMEM-resident envelope (or is unknown); beyond the cap it
-    falls back to the streamed blocked Pallas kernel. Elsewhere, the MXU
-    matmul formulation (the Pallas kernels only interpret off-TPU).
-    """
-    if solver != "auto":
-        return solver
-    backend = backend or jax.default_backend()
-    if backend != "tpu":
-        return "mxu"
-    if n is None or n <= SYMMETRIC_RESIDENT_CAP:
-        return "pallas_symmetric"
-    return "pallas"
-
-
-def make_force_fn(cfg: SimConfig, backend: str | None = None,
+def make_force_fn(cfg: SimConfig, plan: ExecutionPlan | None = None,
                   n: int | None = None) -> ForceFn:
     """Build ``(pos, mass) -> acc`` for the configured solver.
 
     All returned functions require N to already satisfy the solver's padding
     (see :func:`n_body_problem_tpu.ops.forces.required_padding` and
-    :func:`n_body_problem_tpu.state.pad_state`). ``n`` only informs the
-    ``"auto"`` resolution; the returned function stays shape-generic.
+    :func:`n_body_problem_tpu.state.pad_state`). ``n`` only sizes the
+    treecode's automatic VIP budget; the returned function stays
+    shape-generic.
     """
-    solver = resolve_solver(cfg.solver, backend, n)
+    plan = plan or execution_plan()
+    solver = plan.solver(cfg.solver)
     kw = dict(eps2=cfg.eps2, compensate=cfg.compensate, G=cfg.G)
 
     if solver == "direct":
@@ -70,14 +47,8 @@ def make_force_fn(cfg: SimConfig, backend: str | None = None,
         from n_body_problem_tpu.ops import pallas_force
 
         return lambda pos, mass: pallas_force.pallas_acc(
-            pos, mass, tile_i=cfg.pallas_tile_i, tile_j=cfg.pallas_tile_j, **kw
-        )
-    if solver == "pallas_symmetric":
-        from n_body_problem_tpu.ops import pallas_symmetric
-
-        return lambda pos, mass: pallas_symmetric.symmetric_acc(
-            pos, mass, tile=cfg.pallas_sym_tile,
-            precision=cfg.pallas_sym_precision, **kw
+            pos, mass, tile_i=cfg.pallas_tile_i, tile_j=cfg.pallas_tile_j,
+            interpret=plan.interpret, **kw
         )
     if solver == "treecode":
         from n_body_problem_tpu.config import resolve_vip_tiles
@@ -109,7 +80,7 @@ def make_force_fn(cfg: SimConfig, backend: str | None = None,
                     union_coarse=cfg.tree_hier_union,
                     eps2=cfg.eps2, compensate=cfg.compensate, **hsel)
                 ax, ay, az = treecode.treecode_acc_hier_cols(
-                    x, y, z, mass, aux, far_max=cfg.tree_far_max,
+                    x, y, z, mass, aux, far_max=cfg.tree_far_max, plan=plan,
                     **kw, **hsel)
                 import jax.numpy as _jnp
 
@@ -130,7 +101,8 @@ def make_force_fn(cfg: SimConfig, backend: str | None = None,
                     flat_cap=cfg.tree_flat_cap,
                     mac_tau=cfg.tree_mac_tau, eps2=cfg.eps2,
                     compensate=cfg.compensate, **sel)
-                return treecode.treecode_acc_flat(pos, mass, aux, **kw, **sel)
+                return treecode.treecode_acc_flat(pos, mass, aux, plan=plan,
+                                                  **kw, **sel)
 
             return flat_force
         return lambda pos, mass: treecode.treecode_acc(

@@ -1,10 +1,9 @@
 """Barnes-Hut treecode on the Morton tiling — the beyond-brute-force solver.
 
-The reference is exact brute force (1.6 ms/step at N=20,225 on a 4090,
-``kernel.cu:73``); exact f32 brute force on one v5e is chip-bound below its
-derived 2.6e11 directed pairs/s (docs/numerics.md). This solver crosses
-that line algorithmically while keeping every shape static and every hot
-loop on dense TPU tiles. Bodies must be Morton-sorted
+The reference is exact brute force (1.6 ms/step at N=20,225 on an RTX
+4090, ``kernel.cu:73`` — the reference's published number, kept as a
+point of comparison). This solver crosses that line algorithmically
+while keeping every shape static. Bodies must be Morton-sorted
 (``SimConfig.morton_sort`` / ``resort_every``); consecutive ``tile``-body
 blocks are then spatially compact clusters.
 
@@ -38,26 +37,23 @@ Per force evaluation:
    tiles exactly; overflow degrades gracefully (worst offenders stay
    near). ``max_near >= K`` degenerates to the exact solver.
 
-4. **Near field (exact):** the reference pair math against gathered
-   per-target panels, on TPU as a Pallas kernel streaming each target
-   tile's panel through VMEM (same 12-op VPU pair loop as the dense
-   kernels — accepted tiles run at full dense-kernel throughput).
+4. **Near field (exact):** the reference pair math against the listed
+   source tiles — on the GPU a Pallas (Triton) kernel that walks each
+   target row's slice of the compacted list (:func:`_near_flat_kernel`),
+   elsewhere the plain XLA form beside it.
 
 5. **Far field (monopole + quadrupole):** body-vs-tile expansion of the
    *softened* kernel, coefficients derived for
    ``phi = -G m c (c^2 r^2 + eps2)^(-1/2)`` — the same physics the near
    field computes, not an unsoftened approximation. An isotropic
-   quadrupole contributes exactly zero (validated in tests).
+   quadrupole contributes exactly zero (validated in tests). The
+   hierarchical far lists run through a second Triton kernel on the GPU
+   (:func:`_far_hier_kernel`).
 
-Measured on one v5e (Plummer, MAC tau=2e-4, vip=128, src_tile=64,
-columnar run loop): N=262,144 at 97.7 ms/step end-to-end = 7.0e11
-effective directed pairs/s = 2.70x the reference's derived 4090
-baseline, with 7.7e-4 p99 / 1.8e-4 median relative force error probed
-in-run (envelopes asserted in tests/test_treecode.py); N=65,536 at
-14.8 ms/step = 2.9e11 = 1.12x (p99 5.8e-4). Compute splits mean-bound
-with the compacted work lists (see build_tree_flat); the near and far
-kernels run at 70-100% of the dense-kernel VPU roofline, so remaining
-headroom is acceptance geometry, not kernel code.
+Force error of the production path (Plummer, MAC tau=2e-4): ~1e-3 p99
+and ~2e-4 median relative force error (envelopes asserted in
+tests/test_treecode.py and tests/test_treecode_hier.py). Which form of
+each stage runs is decided by ``n_body_problem_tpu.plan``.
 
 The reference has no tree — cited here as the perf target
 (``kernel.cu:73``), not as provenance.
@@ -73,7 +69,9 @@ import jax.numpy as jnp
 import numpy as np
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
+
+from n_body_problem_tpu.plan import ExecutionPlan, execution_plan
 
 DEFAULT_TILE = 32
 DEFAULT_THETA = 0.55
@@ -95,7 +93,7 @@ _TINY = 1e-12
 # --------------------------------------------------------------- summaries
 def _cols(pos):
     """(N, 3) -> three (N,) coordinate columns (the only layout the hot
-    path touches; (N, 3) intermediates pad lanes 3 -> 128 on TPU)."""
+    path touches)."""
     return pos[:, 0], pos[:, 1], pos[:, 2]
 
 
@@ -114,10 +112,6 @@ def tile_summaries_cols(xc, yc, zc, mass: jax.Array, tile: int):
     sum_a m_a outer(delta_a, delta_a), packed [xx, yy, zz, xy, xz, yz].
     Empty (all-massless) tiles get m_tot = radius = quad = 0 and are inert
     as sources.
-
-    Componentwise throughout: intermediates shaped (..., 3) take TPU's
-    128-lane tiled layout on the trailing axis (42x padding) and were
-    measured ~100x slower than this form.
     """
     n = xc.shape[0]
     k = n // tile
@@ -152,7 +146,7 @@ def tile_summaries_cols(xc, yc, zc, mass: jax.Array, tile: int):
 
 
 def _chunk_size(n: int, target: int) -> int:
-    """Largest divisor of n that is <= target (ADVICE r1: min(n, 8192)
+    """Largest divisor of n that is <= target (min(n, 8192)
     crashed reshape for n not a multiple of 8192)."""
     for c in range(min(n, target), 0, -1):
         if n % c == 0:
@@ -391,8 +385,7 @@ def _vip_src_tiles(vip_tiles: int, tile: int, src_tile: int) -> int:
     halo-tile pathology it patches lives at SOURCE granularity, so the
     output-row granularity must not scale it. (Scaling by ``tile``
     silently quadrupled the hierarchical path's N x V VIP sweep at
-    tile=128 — measured ~8 ms of its 15.6 ms step at N=65,536 — with no
-    accuracy rationale.)"""
+    tile=128 with no accuracy rationale.)"""
     del tile
     return max(int(vip_tiles * DEFAULT_TILE // src_tile),
                1 if vip_tiles else 0)
@@ -418,8 +411,8 @@ def suggest_max_near(
     ``margin`` absorbs near-count growth between Morton re-sorts —
     measured +12% over the default 8-step rebuild cadence at N=65k, so
     1.2 leaves real headroom (spare slots also tighten accuracy by
-    computing the worst far tiles exactly); ``multiple`` keeps the Pallas
-    panel width a lane-friendly size.
+    computing the worst far tiles exactly); ``multiple`` rounds the
+    capacity up.
     """
     counts = np.asarray(open_counts(
         jnp.asarray(pos), jnp.asarray(mass),
@@ -433,128 +426,19 @@ def suggest_max_near(
 
 
 # --------------------------------------------------------------- far field
-def _far_kernel(rows_ref,       # (T, 4) target tile [x y z _]
-                summ_ref,       # (16, K) resident tile summaries
-                mask_ref,       # (1, 1, K) this target tile's near mask (f32)
-                out_ref,        # (T, 8)
-                *, c2, eps2, gc, ck):
-    """Monopole+quadrupole far field, one target tile per grid row.
-
-    Summary panel rows: 0..2 com, 3 m_tot, 4..9 quad [xx yy zz xy xz yz],
-    10 tr(S). ~40 VPU ops per (body, tile) interaction; the near-mask
-    multiplies weights to zero (masked tiles are handled exactly by the
-    near field / VIP sweep). Per-chunk register reductions straight into
-    the (T, 8) output (same rationale as _near_kernel).
-    """
-    c = pl.program_id(1)
-    t = rows_ref.shape[0]
-    co = pl.multiple_of(c * ck, ck)
-
-    xi = rows_ref[:, 0:1]
-    yi = rows_ref[:, 1:2]
-    zi = rows_ref[:, 2:3]
-    s = summ_ref[:, pl.ds(co, ck)]                  # (16, CK)
-    live = 1.0 - mask_ref[0, :, pl.ds(co, ck)]      # (1, CK)
-
-    dx = s[0:1, :] - xi                             # (T, CK)
-    dy = s[1:2, :] - yi
-    dz = s[2:3, :] - zi
-    r2 = dx * dx + dy * dy + dz * dz
-    u2 = 1.0 / (c2 * r2 + eps2)
-    u = jnp.sqrt(u2)
-    u3 = u2 * u
-    u5 = u3 * u2
-    u7 = u5 * u2
-    sdx = s[4:5, :] * dx + s[7:8, :] * dy + s[8:9, :] * dz
-    sdy = s[7:8, :] * dx + s[5:6, :] * dy + s[9:10, :] * dz
-    sdz = s[8:9, :] * dx + s[9:10, :] * dy + s[6:7, :] * dz
-    q = dx * sdx + dy * sdy + dz * sdz
-    c4 = c2 * c2
-    c6 = c4 * c2
-    wd = (s[3:4, :] * c2 * u3 - 1.5 * c4 * s[10:11, :] * u5
-          + 7.5 * c6 * q * u7) * live
-    ws = (-3.0 * c4 * u5) * live
-
-    upd = jnp.concatenate(
-        [
-            jnp.sum(wd * dx + ws * sdx, axis=1, keepdims=True),
-            jnp.sum(wd * dy + ws * sdy, axis=1, keepdims=True),
-            jnp.sum(wd * dz + ws * sdz, axis=1, keepdims=True),
-            jnp.zeros((t, 5), out_ref.dtype),
-        ],
-        axis=1,
-    ) * gc
-
-    @pl.when(c == 0)
-    def _():
-        out_ref[...] = upd
-
-    @pl.when(c > 0)
-    def _():
-        out_ref[...] += upd
-
-
-def _far_field_pallas(pos, com, m_tot, quad, near_mask, *,
-                      eps2: float, c2: float, G: float, tile: int,
-                      interpret: bool):
-    return _far_field_pallas_cols(
-        *_cols(pos), com, m_tot, quad, near_mask, eps2=eps2, c2=c2, G=G,
-        tile=tile, interpret=interpret)[:, :3]
-
-
-def _far_field_pallas_cols(xc, yc, zc, com, m_tot, quad, near_mask, *,
-                           eps2: float, c2: float, G: float, tile: int,
-                           interpret: bool):
-    """(N, 8) far-field accelerations in columns 0..2 (raw kernel buffer —
-    callers on the columnar path slice components themselves)."""
-    n = xc.shape[0]
-    k = com.shape[0]
-    f32 = jnp.float32
-    rows = jnp.stack([xc, yc, zc, jnp.zeros((n,), f32)], axis=1)    # (N, 4)
-    tr = quad[:, 0] + quad[:, 1] + quad[:, 2]
-    summ = jnp.concatenate(
-        [com.T, m_tot.reshape(1, k), quad.T, tr.reshape(1, k),
-         jnp.zeros((5, k), f32)], axis=0,
-    )                                                               # (16, K)
-    maskf = near_mask.astype(f32)
-    # Pad the tile axis to a 128-lane multiple (Mosaic crashes on odd
-    # lane counts like galaxy_20K's K=632); zero-mass pad lanes are inert.
-    k_pad = -(-k // 128) * 128
-    if k_pad != k:
-        summ = jnp.pad(summ, ((0, 0), (0, k_pad - k)))
-        maskf = jnp.pad(maskf, ((0, 0), (0, k_pad - k)))
-        k = k_pad
-    # (K_t, 1, K): a (1, 1, K) block satisfies Mosaic's last-two-dims rule
-    # (sublane dim equals the array dim).
-    maskf = maskf.reshape(n // tile, 1, k)
-    ck = 128 * _chunk_size(k // 128, 8)
-    out = pl.pallas_call(
-        functools.partial(_far_kernel, c2=float(c2), eps2=float(eps2),
-                          gc=float(G * math.sqrt(c2)), ck=ck),
-        grid=(n // tile, k // ck),
-        in_specs=[
-            pl.BlockSpec((tile, 4), lambda i, c: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, k), lambda i, c: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((tile, 8), lambda i, c: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((n, 8), f32),
-        cost_estimate=pl.CostEstimate(
-            flops=40 * n * k,
-            bytes_accessed=(n * 4 + 16 * k + (n // tile) * k + n * 8) * 4,
-            transcendentals=n * k,
-        ),
-        interpret=interpret,
-    )(rows, summ, maskf)
-    return out
-
-
 def _far_field(pos, com, m_tot, quad, near_mask, *,
                eps2: float, c2: float, G: float, tile: int):
-    """Monopole+quadrupole acceleration from all non-near tiles.
+    """(N, 3) form of :func:`_far_field_cols`."""
+    return jnp.stack(_far_field_cols(
+        *_cols(pos), com, m_tot, quad, near_mask, eps2=eps2, c2=c2, G=G,
+        tile=tile), axis=1)
+
+
+def _far_field_cols(xc, yc, zc, com, m_tot, quad, near_mask, *,
+                    eps2: float, c2: float, G: float, tile: int):
+    """Monopole+quadrupole acceleration from all non-near tiles,
+    (ax, ay, az) columns (the single-level far field: every body against
+    every source tile, near tiles masked out).
 
     Softened multipole expansion around each tile's com with
     u = (c^2 r^2 + eps2)^(-1/2), d = com - y:
@@ -563,9 +447,10 @@ def _far_field(pos, com, m_tot, quad, near_mask, *,
                     + (15/2) c^6 (d'Sd) u^7 ] d  -  3 G c^5 u^5 S d
 
     Reduces to the classic Newtonian quadrupole for eps2 -> 0; vanishes
-    for isotropic S.
+    for isotropic S. ``near_mask`` rows may be a LOCAL slice of the
+    target tiles (the sharded paths); columns span all source tiles.
     """
-    n = pos.shape[0]
+    n = xc.shape[0]
     k = com.shape[0]
     c = math.sqrt(c2)
     c4 = c2 * c2
@@ -600,360 +485,127 @@ def _far_field(pos, com, m_tot, quad, near_mask, *,
         ax = jnp.sum(wd * dx + ws * sdx, axis=1)
         ay = jnp.sum(wd * dy + ws * sdy, axis=1)
         az = jnp.sum(wd * dz + ws * sdz, axis=1)
-        return gc * jnp.stack([ax, ay, az], axis=1)             # (C, 3)
+        return gc * jnp.stack([ax, ay, az], axis=0)             # (3, C)
 
     chunk = tile * _chunk_size(n // tile, max(8192 // tile, 1))
     body_tile = jax.lax.broadcasted_iota(jnp.int32, (n, 1), 0)[:, 0] // tile
     mask = near_mask[body_tile]                                 # (N, K)
     shape = (n // chunk, chunk)
-    return lax.map(
+    out = lax.map(
         per_chunk,
-        (pos[:, 0].reshape(shape), pos[:, 1].reshape(shape),
-         pos[:, 2].reshape(shape), mask.reshape(n // chunk, chunk, k)),
-    ).reshape(n, 3)
+        (xc.reshape(shape), yc.reshape(shape), zc.reshape(shape),
+         mask.reshape(n // chunk, chunk, k)),
+    )                                                           # (n/C, 3, C)
+    out = jnp.moveaxis(out, 1, 0).reshape(3, n)
+    return out[0], out[1], out[2]
 
 
 # -------------------------------------------------------------- near field
-def _gather_kernel(near_ref, *refs, group: int, tile: int):
-    """Panel-gather copy kernel: assemble ``group`` near tiles per step.
-
-    XLA's gather materializes either element-gathers (measured 10.7 s at
-    N=65k) or a lane-padded (K*W, 4) layout (32x HBM, OOM); this kernel
-    instead drives ``group`` index-mapped 512-byte DMAs per grid step from
-    a (K, 4, T) tile array — the near list lives in the index maps, the
-    body just lays the fetched tiles side by side. Runs at DMA speed.
-    """
-    del near_ref  # consumed by the index maps
-    out = refs[group]
-    for s in range(group):
-        out[:, s * tile:(s + 1) * tile] = refs[s][0]
-
-
-def _gather_panels_pallas(pos, scaled_mass, near_idx, tile: int,
-                          interpret: bool):
-    """(4, K*W) gathered [x y z m] panels via the copy kernel."""
-    n = pos.shape[0]
-    k_src = n // tile
-    k, m_near = near_idx.shape
-    group = math.gcd(m_near, 32)
-    f32 = jnp.float32
-    tiles = jnp.stack(
-        [pos[:, 0].reshape(k_src, tile), pos[:, 1].reshape(k_src, tile),
-         pos[:, 2].reshape(k_src, tile), scaled_mass.reshape(k_src, tile)],
-        axis=1,
-    )                                                           # (K, 4, T)
-    def make_map(s):
-        return lambda p, nr: (nr[p * group + s], 0, 0)
-
-    # The prefetched near list lives in SMEM (1 MiB = 256k int32): segment
-    # the gather over target-row blocks so each call's slice fits with
-    # headroom. Keep segments large — each one is a separate pallas launch
-    # (measured: 128 launches at N=262k cost ~15 ms of pure overhead).
-    seg_rows = max(1, min(k, 160_000 // m_near))
-    while k % seg_rows:
-        seg_rows -= 1
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=((seg_rows * m_near) // group,),
-        in_specs=[pl.BlockSpec((1, 4, tile), make_map(s))
-                  for s in range(group)],
-        out_specs=pl.BlockSpec((4, group * tile), lambda p, nr: (0, p)),
-    )
-    call = pl.pallas_call(
-        functools.partial(_gather_kernel, group=group, tile=tile),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((4, seg_rows * m_near * tile), f32),
-        cost_estimate=pl.CostEstimate(
-            flops=0,
-            bytes_accessed=8 * seg_rows * m_near * tile * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )
-    outs = [
-        call(near_idx[r0:r0 + seg_rows].reshape(-1), *([tiles] * group))
-        .reshape(4, seg_rows, m_near * tile)
-        for r0 in range(0, k, seg_rows)
-    ]
-    return jnp.concatenate(outs, axis=1) if len(outs) > 1 else outs[0]
-
-
 def _gather_panels(pos, scaled_mass, near_idx, tile: int):
-    """(4, K, M*T) gathered [x y z m] panels per target tile.
-
-    The gather runs along the LANE axis of a (4, N) array: a (K*W, 4)
-    result would take TPU's T(8, 128) tiled layout and pad lanes 4 -> 128
-    (32x HBM, measured OOM at N=65k).
-    """
+    """(4, K, M*T) gathered [x y z m] panels per target tile (the dense
+    per-target path: every target row gathers its ``max_near`` source
+    tiles)."""
     k, m_near = near_idx.shape
     body_idx = (near_idx[:, :, None] * tile
                 + jnp.arange(tile, dtype=near_idx.dtype)[None, None, :]
                 ).reshape(k, m_near * tile)                     # (K, M*T)
-    # Four 1-D gathers (not one row gather): XLA materializes a row gather
-    # as (K*W, 4), whose T(8, 128) layout pads lanes 4 -> 128 = 32x HBM
-    # (measured OOM at N=65k).
     comps = [pos[:, 0], pos[:, 1], pos[:, 2], scaled_mass]
     return jnp.stack([c[body_idx] for c in comps], axis=0)      # (4, K, M*T)
 
 
 def _near_field_xla(pos, panels, *, eps2: float, c2: float, tile: int):
-    """Gathered-panel near field (CPU/test path). panels: (4, K, W)."""
+    """Gathered-panel near field of the dense path. panels: (4, K, W)."""
     n = pos.shape[0]
     k = panels.shape[1]
 
     def per_tile(args):
         pi, pan = args                                          # (T,3), (4,W)
-        d = pan[None, :3, :] - pi[:, :, None]                   # (T, 3, W)
-        r2 = jnp.sum(d * d, axis=1)                             # (T, W)
-        inv = lax.rsqrt(c2 * r2 + eps2)
-        w = pan[3, :][None, :] * (inv * inv * inv)
-        return jnp.einsum("iw,icw->ic", w, d,
-                          precision=lax.Precision.HIGHEST)
+        dx = pan[0][None, :] - pi[:, 0:1]                       # (T, W)
+        dy = pan[1][None, :] - pi[:, 1:2]
+        dz = pan[2][None, :] - pi[:, 2:3]
+        inv = lax.rsqrt(c2 * (dx * dx + dy * dy + dz * dz) + eps2)
+        w = pan[3][None, :] * (inv * inv * inv)
+        return jnp.stack([jnp.sum(w * dx, axis=1), jnp.sum(w * dy, axis=1),
+                          jnp.sum(w * dz, axis=1)], axis=1)     # (T, 3)
 
     return lax.map(
         per_tile, (pos.reshape(k, tile, 3), jnp.swapaxes(panels, 0, 1))
     ).reshape(n, 3)
 
 
-def _near_kernel(rows_ref, pan_ref, out_ref, *, c2, eps2, tile):
-    """Near-panel kernel: row tile resident, its gathered panel streamed.
-
-    Plain VPU pair loop with per-chunk register reductions into the (T, 8)
-    output. Alternatives measured and rejected at N=65k on v5e: deferred
-    (T, chunk) VMEM accumulators (no faster), MXU accumulation via
-    ``(W @ [Pc, 1])`` fix-up (HIGHEST's six bf16 passes at a (32, 4) output
-    tile run ~10% slower than the VPU reductions), fast-rsqrt variants
-    (bit-trick + Newton, ``pl.reciprocal(approx=True)`` — all slower than
-    the hardware rsqrt, which costs only ~20% of the loop).
-    """
-    c = pl.program_id(1)
-
-    xi = rows_ref[:, 0:1]                                       # (T, 1)
-    yi = rows_ref[:, 1:2]
-    zi = rows_ref[:, 2:3]
-    dx = pan_ref[0:1, :] - xi                                   # (T, CT)
-    dy = pan_ref[1:2, :] - yi
-    dz = pan_ref[2:3, :] - zi
-    r2 = dx * dx + dy * dy + dz * dz
-    inv = lax.rsqrt(r2 * c2 + eps2)
-    w = pan_ref[3:4, :] * (inv * inv * inv)
-
-    upd = jnp.concatenate(
-        [
-            jnp.sum(w * dx, axis=1, keepdims=True),
-            jnp.sum(w * dy, axis=1, keepdims=True),
-            jnp.sum(w * dz, axis=1, keepdims=True),
-            jnp.zeros((tile, 5), out_ref.dtype),
-        ],
-        axis=1,
-    )
-
-    @pl.when(c == 0)
-    def _():
-        out_ref[...] = upd
-
-    @pl.when(c > 0)
-    def _():
-        out_ref[...] += upd
-
-
-def _near_field_pallas(pos, panels, *, eps2: float, c2: float, tile: int,
-                       interpret: bool):
-    n = pos.shape[0]
-    _, k, width = panels.shape
-    f32 = jnp.float32
-    # Panel chunk: measured sweet spot ~3840 lanes (512-lane chunks are
-    # grid-overhead bound, full-width chunks keep too many vregs live).
-    # Must stay a 128-multiple divisor of the panel width.
-    if width % 128 == 0:
-        ctile = 128 * _chunk_size(width // 128, 3840 // 128)
-    else:
-        ctile = _chunk_size(width, 512)  # interpret-mode small shapes
-    rows = jnp.concatenate([pos, jnp.zeros((n, 1), f32)], axis=1)  # (N, 4)
-    # (4, K*W) lane-major: a (4, ctile) block's sublane dim then equals the
-    # full array dim, which Mosaic accepts (sublane 4 is not 8-divisible).
-    pan2d = panels.reshape(4, k * width)
-    chunks_per_tile = width // ctile
-
-    out = pl.pallas_call(
-        functools.partial(_near_kernel, c2=float(c2), eps2=float(eps2),
-                          tile=tile),
-        grid=(k, chunks_per_tile),
-        in_specs=[
-            pl.BlockSpec((tile, 4), lambda i, c: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(
-                (4, ctile),
-                lambda i, c, _cpt=chunks_per_tile: (0, i * _cpt + c),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec((tile, 8), lambda i, c: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((n, 8), f32),
-        cost_estimate=pl.CostEstimate(
-            flops=15 * n * width,
-            bytes_accessed=(n * 4 + k * 4 * width + n * 8) * 4,
-            transcendentals=n * width,
-        ),
-        interpret=interpret,
-    )(rows, pan2d)
-    return out[:, :3]
-
-
 # --------------------------------------------------------------- VIP sweep
-def _vip_kernel(xi_ref, yi_ref, zi_ref, mi_ref,   # (TI, 1) all-body rows
-                xj_ref, yj_ref, zj_ref, mj_ref,   # (1, W) VIP panel, resident
-                out_ref,                          # (TI, 8) action rows
-                react_ref,                        # (8, W) resident reactions
-                *, c2, eps2, tile_j):
-    """One pass over all (body, VIP) pairs yields BOTH directions.
+def _dense_sweep_cols(xi, yi, zi, xj, yj, zj, scaled_mj, *, eps2: float,
+                      c2: float):
+    """Exact acc columns of the row bodies due to the (pre-scaled-mass)
+    column panel — the plain XLA form of the all-pairs block operation
+    (``ops/pallas_force.py`` holds the kernel)."""
+    ni = xi.shape[0]
+    chunk = _chunk_size(ni, max(1, _PAIR_BUDGET // max(xj.shape[0], 1)))
 
-    Newton's 3rd law on the rectangular sweep: the action of the VIP panel
-    on every body accumulates per-row (as in the blocked kernel), and the
-    reaction of every body on each VIP accumulates into a whole-resident
-    (8, W) buffer at static column offsets — halving what used to be two
-    dense sweeps. The reaction rows ARE the VIPs' complete accelerations
-    (the row set is all N bodies, VIPs included; self-pairs are zero).
+    def per_chunk(args):
+        x_c, y_c, z_c = args                                    # (C,)
+        dx = xj[None, :] - x_c[:, None]                         # (C, W)
+        dy = yj[None, :] - y_c[:, None]
+        dz = zj[None, :] - z_c[:, None]
+        inv = lax.rsqrt(c2 * (dx * dx + dy * dy + dz * dz) + eps2)
+        w = scaled_mj[None, :] * (inv * inv * inv)
+        return jnp.stack([jnp.sum(w * dx, axis=1), jnp.sum(w * dy, axis=1),
+                          jnp.sum(w * dz, axis=1)], axis=0)     # (3, C)
+
+    shape = (ni // chunk, chunk)
+    out = lax.map(per_chunk, (xi.reshape(shape), yi.reshape(shape),
+                              zi.reshape(shape)))
+    out = jnp.moveaxis(out, 1, 0).reshape(3, ni)
+    return out[0], out[1], out[2]
+
+
+def _dense_sweep(pos_i, pos_j, scaled_mass_j, *, eps2: float, c2: float):
+    """(N_i, 3) form of :func:`_dense_sweep_cols`."""
+    return jnp.stack(_dense_sweep_cols(
+        *_cols(pos_i), *_cols(pos_j), scaled_mass_j, eps2=eps2, c2=c2),
+        axis=1)
+
+
+def _pow2_tile(n: int, cap: int) -> int:
+    """Largest power of two <= cap dividing n (kernel block width)."""
+    t = cap
+    while n % t:
+        t //= 2
+    return t
+
+
+def _pair_cols(xi, yi, zi, xj, yj, zj, scaled_mj, *, eps2, c2,
+               plan: ExecutionPlan):
+    """All-pairs block op through the plan: kernel or plain XLA."""
+    if plan.pair_kernel:
+        from n_body_problem_tpu.ops.pallas_force import pair_block_cols
+
+        return pair_block_cols(
+            xi, yi, zi, xj, yj, zj, scaled_mj, eps2=eps2, c2=c2,
+            tile_i=_pow2_tile(xi.shape[0], 64),
+            tile_j=_pow2_tile(xj.shape[0], 64), interpret=plan.interpret)
+    return _dense_sweep_cols(xi, yi, zi, xj, yj, zj, scaled_mj, eps2=eps2,
+                             c2=c2)
+
+
+def _vip_sweep_cols(xc, yc, zc, scaled_all, vx, vy, vz, vscaled, *,
+                    eps2: float, c2: float, plan: ExecutionPlan):
+    """Both directions of the exact VIP sweep, as columns:
+    ``((ax, ay, az) of every row body due to the VIP panel,
+    (rx, ry, rz) of every VIP due to the row bodies)``.
+
+    Rows and panel are decoupled so the multi-device paths can sweep
+    LOCAL rows against the GLOBAL panel (the reactions then psum to
+    completeness). The reaction is the same block operation with the
+    roles swapped: the row set is all bodies, VIPs included, and
+    self-pairs contribute zero, so it IS each VIP's complete
+    acceleration.
     """
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    co = pl.multiple_of(j * tile_j, tile_j)
-
-    @pl.when(jnp.logical_and(i == 0, j == 0))
-    def _():
-        react_ref[...] = jnp.zeros_like(react_ref)
-
-    dx = xj_ref[:, pl.ds(co, tile_j)] - xi_ref[:]   # (TI, TJ)
-    dy = yj_ref[:, pl.ds(co, tile_j)] - yi_ref[:]
-    dz = zj_ref[:, pl.ds(co, tile_j)] - zi_ref[:]
-    r2 = dx * dx + dy * dy + dz * dz
-    inv = lax.rsqrt(r2 * c2 + eps2)
-    u = inv * inv * inv
-    w = mj_ref[:, pl.ds(co, tile_j)] * u            # action weights
-    v = mi_ref[:] * u                               # reaction weights
-
-    ti = out_ref.shape[0]
-    upd = jnp.concatenate(
-        [
-            jnp.sum(w * dx, axis=1, keepdims=True),
-            jnp.sum(w * dy, axis=1, keepdims=True),
-            jnp.sum(w * dz, axis=1, keepdims=True),
-            jnp.zeros((ti, 5), out_ref.dtype),
-        ],
-        axis=1,
-    )
-
-    @pl.when(j == 0)
-    def _():
-        out_ref[...] = upd
-
-    @pl.when(j > 0)
-    def _():
-        out_ref[...] += upd
-
-    rupd = jnp.concatenate(
-        [
-            -jnp.sum(v * dx, axis=0, keepdims=True),
-            -jnp.sum(v * dy, axis=0, keepdims=True),
-            -jnp.sum(v * dz, axis=0, keepdims=True),
-            jnp.zeros((5, tile_j), react_ref.dtype),
-        ],
-        axis=0,
-    )
-    react_ref[:, pl.ds(co, tile_j)] += rupd
-
-
-def _vip_both_pallas(pos, scaled_mass_all, vip_pos, vip_scaled_mass, *,
-                     eps2: float, c2: float, interpret: bool):
-    """(action (N,3) of the VIP panel on every row body, reaction (W,3) =
-    the rows' pull on each VIP) in ONE rectangular Pallas sweep."""
-    out, react = _vip_both_pallas_cols(
-        *_cols(pos), scaled_mass_all, *_cols(vip_pos), vip_scaled_mass,
-        eps2=eps2, c2=c2, interpret=interpret)
-    return out[:, :3], react[:3, :].T
-
-
-def _vip_both_pallas_cols(xc, yc, zc, scaled_mass_all,
-                          vx, vy, vz, vip_scaled_mass, *,
-                          eps2: float, c2: float, interpret: bool):
-    """Columnar VIP sweep core: ((N, 8) action buffer [cols 0..2], (8, W)
-    reaction buffer [rows 0..2]).
-
-    Rows and panel are decoupled so the multi-chip path can sweep LOCAL
-    rows against the GLOBAL panel (reactions then psum to completeness).
-    """
-    n = xc.shape[0]
-    w_cnt = vx.shape[0]
-    f32 = jnp.float32
-    tile_i = _chunk_size(n, 256)
-    tile_j = _chunk_size(w_cnt, 1024)
-    xi = xc[:, None]
-    yi = yc[:, None]
-    zi = zc[:, None]
-    mi = scaled_mass_all.reshape(n, 1)
-    xj = vx.reshape(1, w_cnt)
-    yj = vy.reshape(1, w_cnt)
-    zj = vz.reshape(1, w_cnt)
-    mj = vip_scaled_mass.reshape(1, w_cnt)
-
-    col = lambda: pl.BlockSpec((tile_i, 1), lambda i, j: (i, 0),
-                               memory_space=pltpu.VMEM)
-    vmem = pl.BlockSpec(memory_space=pltpu.VMEM)
-    out, react = pl.pallas_call(
-        functools.partial(_vip_kernel, c2=float(c2), eps2=float(eps2),
-                          tile_j=tile_j),
-        grid=(n // tile_i, w_cnt // tile_j),
-        in_specs=[col(), col(), col(), col(), vmem, vmem, vmem, vmem],
-        out_specs=(
-            pl.BlockSpec((tile_i, 8), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-            vmem,
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((n, 8), f32),
-            jax.ShapeDtypeStruct((8, w_cnt), f32),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=22 * n * w_cnt,
-            bytes_accessed=(4 * n + 4 * w_cnt + 8 * n + 8 * w_cnt) * 4,
-            transcendentals=n * w_cnt,
-        ),
-        interpret=interpret,
-    )(xi, yi, zi, mi, xj, yj, zj, mj)
-    return out, react
-
-
-def _dense_sweep(pos_i, pos_j, scaled_mass_j, *, eps2: float, c2: float,
-                 use_pallas: bool, interpret: bool):
-    """Exact acc of rows due to the (pre-scaled-mass) column panel."""
-    if use_pallas:
-        from n_body_problem_tpu.ops.pallas_force import pallas_block_acc
-
-        ni, nj = pos_i.shape[0], pos_j.shape[0]
-        ti = _chunk_size(ni, 256)
-        tj = _chunk_size(nj, 1024)
-        # pallas_block_acc re-scales masses by G*c^3 internally; pass the
-        # raw G that makes its scaling a no-op on our pre-scaled masses.
-        return pallas_block_acc(
-            pos_i, pos_j, scaled_mass_j / (c2 * math.sqrt(c2)),
-            eps2=eps2, compensate=math.sqrt(c2), G=1.0,
-            tile_i=ti, tile_j=tj, interpret=interpret,
-        )
-
-    ni = pos_i.shape[0]
-    chunk = _chunk_size(ni, 4096)
-
-    def per_chunk(p_c):
-        d = pos_j[None, :, :] - p_c[:, None, :]
-        r2 = jnp.sum(d * d, axis=-1)
-        inv = lax.rsqrt(c2 * r2 + eps2)
-        w = scaled_mass_j[None, :] * (inv * inv * inv)
-        return jnp.einsum("ij,ijc->ic", w, d,
-                          precision=lax.Precision.HIGHEST)
-
-    return lax.map(per_chunk, pos_i.reshape(ni // chunk, chunk, 3)
-                   ).reshape(ni, 3)
+    action = _pair_cols(xc, yc, zc, vx, vy, vz, vscaled, eps2=eps2, c2=c2,
+                        plan=plan)
+    react = _pair_cols(vx, vy, vz, xc, yc, zc, scaled_all, eps2=eps2, c2=c2,
+                       plan=plan)
+    return action, react
 
 
 # ------------------------------------------------------------------ solver
@@ -963,8 +615,8 @@ def _static_args(n, tile, theta, max_near, vip_tiles):
     if not (0.0 < theta <= 1.0):
         raise ValueError(f"theta must be in (0, 1], got {theta}")
     k = n // tile
-    # Round the capacity to a multiple of 4 (keeps the Pallas panel width
-    # 128-lane aligned for tile=32); extra slots only add exact tiles.
+    # Round the capacity to a multiple of 4; extra slots only add exact
+    # tiles.
     max_near = min(-(-max_near // 4) * 4, k)
     vip_tiles = _clamp_vip(vip_tiles, k)
     return k, max_near, vip_tiles
@@ -1019,23 +671,23 @@ def build_tree(
 # Near cost with per-target static capacity is max-bound (every target
 # pays for the worst target's near count). The flat path compacts the
 # per-target near lists into ONE work array so cost is MEAN-bound, and
-# works at an ASYMMETRIC granularity: target rows stay ``tile`` (=32)
-# bodies — the output/accuracy granularity — while near SOURCES span
-# ``src_tile`` (=64) bodies. Coarser sources shrink every bookkeeping
-# structure 2x (acceptance matrix, top_k, far-field summary count) and
-# make each near entry a 1 KiB, 64-lane-aligned panel the near kernel
-# fetches STRAIGHT from HBM via scalar-prefetched index maps — no gathered
-# panel array is materialized (the round-2 gather kernel moved ~2 GiB of
-# 512 B panels per eval at N=262k and cost 22 ms). The price is a thicker
-# exact-near boundary shell (the opening test fires earlier for bigger
-# sources); measured (tools/profile_treecode.py) the trade wins ~2x.
-CHUNK_LANES = 2048        # near-work lanes per kernel grid step
+# works at an ASYMMETRIC granularity: target rows stay ``tile`` bodies —
+# the output/accuracy granularity — while near SOURCES span ``src_tile``
+# (=64) bodies. Coarser sources shrink every bookkeeping structure 2x
+# (acceptance matrix, top_k, far-field summary count); the price is a
+# thicker exact-near boundary shell (the opening test fires earlier for
+# bigger sources).
+CHUNK_LANES = 2048        # source bodies per near work-list chunk: the
+                          # lists are allocated in chunks of
+                          # CHUNK_LANES / src_tile source tiles (an
+                          # algorithm default, not yet tuned on the GPU)
 DEFAULT_SRC_TILE = 64     # source granularity (bodies) of the flat path
-                          # (64 vs 128 measured: equal p99 error on the
-                          # same state, 18% faster end-to-end at N=262k)
+                          # (64 vs 128: equal p99 error on the same state
+                          # at N=262k, half the near work per entry)
 DEFAULT_NEAR_SLACK = 8    # extra closest-far source tiles computed exactly
                           # per target (headroom for inter-rebuild drift)
-_SEG_PREFETCH_INT32 = 100_000  # per-call scalar-prefetch budget (SMEM 1 MiB)
+_PAIR_BUDGET = 1 << 26    # pair evaluations per step of the XLA forms'
+                          # loops (bounds their transient memory)
 
 
 def _flat_static(n, tile, src_tile, theta, max_near, vip_tiles):
@@ -1283,131 +935,170 @@ def suggest_flat_cap_sharded(pos, mass, n_dev: int, *,
     return ((need + entries - 1) // entries) * entries
 
 
-def _near_flat_kernel(ctgt_ref, fsrc_ref, rows_ref, acc_ref, *refs,
-                      c2, eps2, tile, entries, k_t):
-    """Direct-fetch flat near kernel: one CHUNK_LANES-wide chunk of
-    ``entries`` source panels per grid step, each panel DMA'd straight
-    from the (K_s+1, 4, S) tile array by a scalar-prefetched index map —
-    no gathered panel array exists. The output block is selected (and
-    seeded from the aliased accumulator) by the chunk's target tag;
-    sentinel chunks (tag == K_t, the unused capacity tail) skip all
-    compute, so flat_cap headroom is nearly free. ``acc_ref`` aliases the
-    output buffer so the near field can run in segments (the scalar
-    prefetch must fit SMEM) with straddled targets accumulating across
-    calls.
-    """
-    out_ref = refs[entries]
-    p = pl.program_id(0)
-    tgt = ctgt_ref[p]
-    prev = ctgt_ref[jnp.maximum(p - 1, 0)]
-    first = jnp.logical_or(p == 0, tgt != prev)
-
-    @pl.when(tgt != k_t)
-    def _():
-        xi = rows_ref[:, 0:1]
-        yi = rows_ref[:, 1:2]
-        zi = rows_ref[:, 2:3]
-        # One wide panel, one long op chain: per-entry (T, S) chains are
-        # short vector ops that underfill the VPU pipelines (the round-2
-        # kernel measured its sweet spot at ~2-4k-lane chunks); the
-        # VMEM-to-VMEM concat costs ~4*CHUNK_LANES moves vs ~15x that in
-        # pair math.
-        pan = jnp.concatenate([refs[s][0] for s in range(entries)], axis=1)
-        dx = pan[0:1, :] - xi                                # (T, E*S)
-        dy = pan[1:2, :] - yi
-        dz = pan[2:3, :] - zi
-        r2 = dx * dx + dy * dy + dz * dz
-        inv = lax.rsqrt(r2 * c2 + eps2)
-        w = pan[3:4, :] * (inv * inv * inv)
-        upd = jnp.concatenate(
-            [
-                jnp.sum(w * dx, axis=1, keepdims=True),
-                jnp.sum(w * dy, axis=1, keepdims=True),
-                jnp.sum(w * dz, axis=1, keepdims=True),
-                jnp.zeros((tile, 5), out_ref.dtype),
-            ],
-            axis=1,
-        )
-
-        @pl.when(first)
-        def _():
-            out_ref[...] = acc_ref[...] + upd
-
-        @pl.when(jnp.logical_not(first))
-        def _():
-            out_ref[...] += upd
+def _source_cols(xc, yc, zc, scaled, src_tile: int):
+    """Near-field source columns ``(xs, ys, zs, ms)``: the bodies in
+    source-tile order plus one all-zero sentinel tile at index K_s (list
+    entries that point there contribute exactly nothing). Masses are
+    pre-scaled by G c^3."""
+    pad = lambda a: jnp.concatenate(
+        [a.astype(jnp.float32), jnp.zeros((src_tile,), jnp.float32)])
+    return pad(xc), pad(yc), pad(zc), pad(scaled)
 
 
-def _near_field_flat(pos, tiles, flat_src, chunk_tgt, *, eps2: float,
-                     c2: float, tile: int, src_tile: int, interpret: bool,
-                     seg_budget: int = _SEG_PREFETCH_INT32):
-    """Mean-bound exact near field, (N, 3) (see the columnar core)."""
-    acc = _near_field_flat_cols(
-        *_cols(pos), tiles, flat_src, chunk_tgt, eps2=eps2, c2=c2,
-        tile=tile, src_tile=src_tile, interpret=interpret,
-        seg_budget=seg_budget)
-    return acc[:pos.shape[0], :3]
+def _row_ranges(chunk_tgt, k_t: int):
+    """(first chunk (K_t,), chunk count (K_t,)) of every target row in a
+    compacted work list. ``_compact_open_lists`` writes each row's chunks
+    contiguously in row order (sentinel tail last), so ``chunk_tgt`` is
+    sorted and two searches give the ranges."""
+    rows = jnp.arange(k_t, dtype=chunk_tgt.dtype)
+    first = jnp.searchsorted(chunk_tgt, rows, side="left")
+    last = jnp.searchsorted(chunk_tgt, rows, side="right")
+    return first.astype(jnp.int32), (last - first).astype(jnp.int32)
 
 
-def _near_field_flat_cols(xc, yc, zc, tiles, flat_src, chunk_tgt, *,
-                          eps2: float, c2: float, tile: int, src_tile: int,
-                          interpret: bool,
-                          seg_budget: int = _SEG_PREFETCH_INT32):
-    """Mean-bound exact near field: ((K_t + 1) * tile, 8) raw accumulator
-    (columns 0..2 are the acceleration; the trailing ``tile`` rows are the
-    sentinel target's scratch).
+def _row_sums(vals, chunk_tgt, k_t: int, max_chunks: int):
+    """Sum per-chunk partials ``vals (n_chunks, ...)`` into their target
+    rows: ``(K_t, ...)``. Each row gathers its own ``max_chunks`` slots in
+    a fixed order — deterministic from run to run, unlike a scatter-add,
+    whose float additions land in whatever order the atomics do."""
+    first, count = _row_ranges(chunk_tgt, k_t)
+    slot = jnp.arange(max_chunks, dtype=jnp.int32)
+    idx = first[:, None] + slot[None, :]                        # (K_t, C)
+    valid = slot[None, :] < count[:, None]
+    g = vals[jnp.where(valid, idx, 0)]                          # (K_t, C, ...)
+    valid = valid.reshape(valid.shape + (1,) * (g.ndim - 2))
+    return jnp.sum(jnp.where(valid, g, 0.0), axis=1)
 
-    ``tiles`` is the (K_s + 1, 4, S) componentwise source array (sentinel
-    zero row last, mass pre-scaled by G*c^3). Segmented so each call's
-    scalar prefetch (chunk tags + entry indices) fits SMEM; the
-    accumulator output is aliased through the segments.
-    """
+
+def _near_flat_kernel(first_ref, count_ref, fsrc_ref, xt_ref, yt_ref,
+                      zt_ref, xs_ref, ys_ref, zs_ref, ms_ref,
+                      ax_ref, ay_ref, az_ref, *, c2: float, eps2: float,
+                      src_tile: int, entries: int, blocks_per_row: int):
+    """Flat near field for the GPU (Pallas, Triton): one program per
+    block of a target row, looping over that row's own slice of the
+    compacted list — one ``src_tile``-body source tile per iteration,
+    its index loaded from the list and its bodies from the source
+    columns. Sums stay in registers; each program writes only its own
+    rows, so there are no atomics and the result is deterministic.
+    Sentinel entries point at the zero tile; the list's sentinel tail
+    (tag K_t) belongs to no row and is never visited."""
+    row = pl.program_id(0) // blocks_per_row
+    e0 = first_ref[row] * entries
+    e1 = e0 + count_ref[row] * entries
+    xi = xt_ref[...][:, None]                           # (TB, 1)
+    yi = yt_ref[...][:, None]
+    zi = zt_ref[...][:, None]
+
+    def body(e, acc):
+        sx, sy, sz = acc
+        o = pl.multiple_of(fsrc_ref[e] * src_tile, src_tile)
+        dx = xs_ref[pl.ds(o, src_tile)][None, :] - xi      # (TB, S)
+        dy = ys_ref[pl.ds(o, src_tile)][None, :] - yi
+        dz = zs_ref[pl.ds(o, src_tile)][None, :] - zi
+        inv = lax.rsqrt((dx * dx + dy * dy + dz * dz) * c2 + eps2)
+        w = ms_ref[pl.ds(o, src_tile)][None, :] * (inv * inv * inv)
+        return sx + w * dx, sy + w * dy, sz + w * dz
+
+    zero = jnp.zeros((xi.shape[0], src_tile), jnp.float32)
+    sx, sy, sz = lax.fori_loop(e0, e1, body, (zero, zero, zero))
+    ax_ref[...] = jnp.sum(sx, axis=1)
+    ay_ref[...] = jnp.sum(sy, axis=1)
+    az_ref[...] = jnp.sum(sz, axis=1)
+
+
+NEAR_ROWS = 64            # target rows per near-kernel program
+NEAR_WARPS = 4
+NEAR_STAGES = 3
+
+
+def _near_field_flat_kernel(xc, yc, zc, src, flat_src, chunk_tgt, *,
+                            eps2: float, c2: float, tile: int,
+                            src_tile: int, interpret: bool = False):
+    """Kernel form of :func:`_near_field_flat_cols` (same arguments)."""
+    n = xc.shape[0]
+    k_t = n // tile
+    rows = _pow2_tile(tile, NEAR_ROWS)
+    first, count = _row_ranges(chunk_tgt, k_t)
+    blk = pl.BlockSpec((rows,), lambda p: (p,))
+    whole = pl.no_block_spec
+    out = jax.ShapeDtypeStruct((n,), jnp.float32)
+    return pl.pallas_call(
+        functools.partial(_near_flat_kernel, c2=float(c2), eps2=float(eps2),
+                          src_tile=src_tile,
+                          entries=CHUNK_LANES // src_tile,
+                          blocks_per_row=tile // rows),
+        grid=(n // rows,),
+        in_specs=[whole, whole, whole, blk, blk, blk,
+                  whole, whole, whole, whole],
+        out_specs=[blk, blk, blk],
+        out_shape=[out, out, out],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NEAR_WARPS,
+                                             num_stages=NEAR_STAGES),
+        interpret=interpret,
+        name="nbody_near_flat",
+    )(first, count, flat_src.astype(jnp.int32), xc, yc, zc, *src)
+
+
+def _near_field_flat_xla(xc, yc, zc, src, flat_src, chunk_tgt, *,
+                         eps2: float, c2: float, tile: int, src_tile: int,
+                         max_chunks: int, block: int | None = None):
+    """Plain XLA form of :func:`_near_field_flat_cols`: per-chunk partial
+    sums in ``block``-chunk steps of a loop (mean-bound, like the list),
+    then the deterministic per-row reduction :func:`_row_sums`."""
     n = xc.shape[0]
     k_t = n // tile
     entries = CHUNK_LANES // src_tile
-    f32 = jnp.float32
+    width = entries * src_tile
     n_chunks = chunk_tgt.shape[0]
-    zero = jnp.zeros((n,), f32)
-    rows = jnp.stack([xc, yc, zc, zero], axis=1)                # (N, 4)
-    rows = jnp.concatenate([rows, jnp.zeros((tile, 4), f32)], axis=0)
-    acc = jnp.zeros(((k_t + 1) * tile, 8), f32)
+    k_s = src[0].shape[0] // src_tile - 1
+    xs, ys, zs, ms = (a.reshape(k_s + 1, src_tile) for a in src)
+    tx, ty, tz = (jnp.concatenate([a, jnp.zeros((tile,), a.dtype)])
+                  .reshape(k_t + 1, tile) for a in (xc, yc, zc))
+    b = block or max(1, _PAIR_BUDGET // (tile * width))
+    b = min(b, n_chunks)
+    pad = -n_chunks % b
+    ct = jnp.concatenate([chunk_tgt, jnp.full((pad,), k_t, jnp.int32)])
+    fs = jnp.concatenate([flat_src, jnp.full((pad * entries,), k_s,
+                                             jnp.int32)])
 
-    def make_map(s):
-        return lambda p, ct, fs: (fs[p * entries + s], 0, 0)
+    def per_block(args):
+        ct_b, fs_b = args                               # (B,), (B*E,)
+        idx = fs_b.reshape(b, entries)
+        px = xs[idx].reshape(b, 1, width)
+        py = ys[idx].reshape(b, 1, width)
+        pz = zs[idx].reshape(b, 1, width)
+        pm = ms[idx].reshape(b, 1, width)
+        dx = px - tx[ct_b][:, :, None]                  # (B, T, W)
+        dy = py - ty[ct_b][:, :, None]
+        dz = pz - tz[ct_b][:, :, None]
+        inv = lax.rsqrt(c2 * (dx * dx + dy * dy + dz * dz) + eps2)
+        w = pm * (inv * inv * inv)
+        return jnp.stack([jnp.sum(w * dx, axis=2), jnp.sum(w * dy, axis=2),
+                          jnp.sum(w * dz, axis=2)], axis=2)  # (B, T, 3)
 
-    seg = max(1, min(n_chunks, seg_budget // (entries + 1)))
-    for start in range(0, n_chunks, seg):
-        size = min(seg, n_chunks - start)
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(size,),
-            in_specs=[
-                pl.BlockSpec((tile, 4), lambda p, ct, fs: (ct[p], 0)),
-                pl.BlockSpec((tile, 8), lambda p, ct, fs: (ct[p], 0)),
-            ] + [pl.BlockSpec((1, 4, src_tile), make_map(s))
-                 for s in range(entries)],
-            out_specs=pl.BlockSpec((tile, 8), lambda p, ct, fs: (ct[p], 0)),
-        )
-        acc = pl.pallas_call(
-            functools.partial(_near_flat_kernel, c2=float(c2),
-                              eps2=float(eps2), tile=tile, entries=entries,
-                              k_t=k_t),
-            grid_spec=grid_spec,
-            out_shape=jax.ShapeDtypeStruct(((k_t + 1) * tile, 8), f32),
-            # inputs (incl. the 2 scalar-prefetch operands): the aliased
-            # accumulator is operand 3 (ct, fs, rows, acc, *tiles).
-            input_output_aliases={3: 0},
-            cost_estimate=pl.CostEstimate(
-                flops=15 * size * tile * CHUNK_LANES,
-                bytes_accessed=(size * tile * 4
-                                + 4 * size * CHUNK_LANES) * 4,
-                transcendentals=size * tile * CHUNK_LANES,
-            ),
-            interpret=interpret,
-        )(chunk_tgt[start:start + size],
-          flat_src[start * entries:(start + size) * entries],
-          rows, acc, *([tiles] * entries))
-    return acc
+    vals = lax.map(per_block, (ct.reshape(-1, b),
+                               fs.reshape(-1, b * entries)))
+    vals = vals.reshape(-1, tile, 3)[:n_chunks]
+    acc = _row_sums(vals, chunk_tgt, k_t, max_chunks).reshape(n, 3)
+    return acc[:, 0], acc[:, 1], acc[:, 2]
+
+
+def _near_field_flat_cols(xc, yc, zc, src, flat_src, chunk_tgt, *,
+                          eps2: float, c2: float, tile: int, src_tile: int,
+                          max_chunks: int, plan: ExecutionPlan):
+    """Mean-bound exact near field of the compacted lists: (ax, ay, az)
+    of the ``tile``-body target rows in ``xc`` from the source columns
+    ``src`` (:func:`_source_cols`). ``max_chunks`` bounds any row's chunk
+    count (``max_near / entries``). The plan picks the GPU kernel or the
+    plain XLA form."""
+    if plan.near_kernel:
+        return _near_field_flat_kernel(
+            xc, yc, zc, src, flat_src, chunk_tgt, eps2=eps2, c2=c2,
+            tile=tile, src_tile=src_tile, interpret=plan.interpret)
+    return _near_field_flat_xla(
+        xc, yc, zc, src, flat_src, chunk_tgt, eps2=eps2, c2=c2, tile=tile,
+        src_tile=src_tile, max_chunks=max_chunks)
 
 
 # ---------------------------------------------------- sharded flat helpers
@@ -1461,71 +1152,88 @@ def build_flat_local(xl, yl, zl, xg, yg, zg, mass_g, *, tile: int,
     return flat_src, chunk_tgt, near_mask, is_vip_g
 
 
+def _vip_body_idx(is_vip_body, k_s: int, src_tile: int, vip_src: int):
+    """(vip tile ids (V,), vip body ids (V*S,)) of the VIP split."""
+    vip_tile_idx = jnp.nonzero(
+        is_vip_body.reshape(k_s, src_tile)[:, 0], size=vip_src, fill_value=0,
+    )[0]
+    body_idx = (vip_tile_idx[:, None] * src_tile
+                + jnp.arange(src_tile, dtype=jnp.int32)[None, :]).reshape(-1)
+    return vip_tile_idx, body_idx
+
+
+def _apply_vip(ax, ay, az, xc, yc, zc, mass, vip_tile_idx, *, k_s: int,
+               src_tile: int, gc3: float, eps2: float, c2: float,
+               plan: ExecutionPlan):
+    """Single-device VIP step: add the VIP panel's exact pull to every
+    row and overwrite the VIP rows with their exact accelerations.
+    VIP bodies are whole source tiles, so the panel gather and the
+    overwrite run as row slices of the (K_s, S) column view instead of
+    element-wise random access."""
+    n = xc.shape[0]
+    scaled_all = mass * jnp.float32(gc3)
+    vrow = lambda col: col.reshape(k_s, src_tile)[vip_tile_idx].reshape(-1)
+    action, react = _vip_sweep_cols(
+        xc, yc, zc, scaled_all, vrow(xc), vrow(yc), vrow(zc),
+        vrow(scaled_all), eps2=eps2, c2=c2, plan=plan)
+
+    def merge(col, add, rcol):
+        out = (col + add).reshape(k_s, src_tile)
+        out = out.at[vip_tile_idx].set(rcol.reshape(-1, src_tile))
+        return out.reshape(n)
+
+    return tuple(merge(c, a, r) for c, a, r in zip((ax, ay, az), action,
+                                                   react))
+
+
 def flat_local_acc(xl, yl, zl, ml, xg, yg, zg, mass_g, aux, *, eps2: float,
                    compensate: float, G: float, tile: int, src_tile: int,
-                   max_near: int, vip_tiles: int, interpret: bool):
+                   max_near: int, vip_tiles: int,
+                   plan: ExecutionPlan | None = None):
     """Columnar flat treecode acc of LOCAL rows from replicated GLOBAL
-    sources: ``(axl, ayl, azl, react (8, W) | None, vip_body_idx | None)``.
+    sources: ``(axl, ayl, azl, react (rx, ry, rz) | None,
+    vip_body_idx | None)``.
 
-    ``react`` is this chip's partial pull on the global VIP panel — the
+    ``react`` is this device's partial pull on the global VIP panel — the
     caller must ``psum`` it over the mesh axis and overwrite the VIP rows
-    it owns with ``react[0:3]`` (see parallel/tree.py). Physics identical
-    to :func:`treecode_acc_flat_cols` restricted to local target rows.
+    it owns with it (see parallel/tree.py). Physics identical to
+    :func:`treecode_acc_flat_cols` restricted to local target rows.
     """
+    plan = plan or execution_plan()
     flat_src, chunk_tgt, near_mask, is_vip_g = aux
     n_g = xg.shape[0]
-    k_s, _, _, vip_src = _flat_src_static(n_g, tile, src_tile, max_near,
-                                          vip_tiles)
+    k_s, entries, max_near, vip_src = _flat_src_static(
+        n_g, tile, src_tile, max_near, vip_tiles)
     c2 = compensate * compensate
     gc3 = G * c2 * compensate
     f32 = jnp.float32
-    n_l = xl.shape[0]
     mass_tree_g = jnp.where(is_vip_g, 0.0, mass_g) if vip_src else mass_g
     com, m_tot, _, quad = tile_summaries_cols(xg, yg, zg, mass_tree_g,
                                               src_tile)
-    scaled_g = mass_tree_g * f32(gc3)
-    tiles = jnp.stack(
-        [xg.reshape(k_s, src_tile), yg.reshape(k_s, src_tile),
-         zg.reshape(k_s, src_tile), scaled_g.reshape(k_s, src_tile)],
-        axis=1,
-    )
-    tiles = jnp.concatenate([tiles, jnp.zeros((1, 4, src_tile), f32)],
-                            axis=0)
-    accn = _near_field_flat_cols(xl, yl, zl, tiles, flat_src, chunk_tgt,
-                                 eps2=eps2, c2=c2, tile=tile,
-                                 src_tile=src_tile, interpret=interpret)
-    accf = _far_field_pallas_cols(xl, yl, zl, com, m_tot, quad, near_mask,
-                                  eps2=eps2, c2=c2, G=G, tile=tile,
-                                  interpret=interpret)
-    ax = accn[:n_l, 0] + accf[:, 0]
-    ay = accn[:n_l, 1] + accf[:, 1]
-    az = accn[:n_l, 2] + accf[:, 2]
+    src = _source_cols(xg, yg, zg, mass_tree_g * f32(gc3), src_tile)
+    nx, ny, nz = _near_field_flat_cols(
+        xl, yl, zl, src, flat_src, chunk_tgt, eps2=eps2, c2=c2, tile=tile,
+        src_tile=src_tile, max_chunks=max_near // entries, plan=plan)
+    fx, fy, fz = _far_field_cols(xl, yl, zl, com, m_tot, quad, near_mask,
+                                 eps2=eps2, c2=c2, G=G, tile=tile)
+    ax, ay, az = nx + fx, ny + fy, nz + fz
     if not vip_src:
         return ax, ay, az, None, None
-    vip_tile_idx = jnp.nonzero(
-        is_vip_g.reshape(k_s, src_tile)[:, 0], size=vip_src, fill_value=0,
-    )[0]
-    vip_body_idx = (vip_tile_idx[:, None] * src_tile
-                    + jnp.arange(src_tile, dtype=jnp.int32)[None, :]
-                    ).reshape(-1)
+    _, vip_body_idx = _vip_body_idx(is_vip_g, k_s, src_tile, vip_src)
     scaled_all_g = mass_g * f32(gc3)
-    action, react = _vip_both_pallas_cols(
+    action, react = _vip_sweep_cols(
         xl, yl, zl, ml * f32(gc3),
         xg[vip_body_idx], yg[vip_body_idx], zg[vip_body_idx],
-        scaled_all_g[vip_body_idx],
-        eps2=eps2, c2=c2, interpret=interpret,
-    )
-    ax = ax + action[:, 0]
-    ay = ay + action[:, 1]
-    az = az + action[:, 2]
-    return ax, ay, az, react, vip_body_idx
+        scaled_all_g[vip_body_idx], eps2=eps2, c2=c2, plan=plan)
+    return (ax + action[0], ay + action[1], az + action[2], react,
+            vip_body_idx)
 
 
 @functools.partial(
     jax.jit,
     static_argnames=(
         "eps2", "compensate", "G", "tile", "src_tile", "theta", "max_near",
-        "vip_tiles", "interpret",
+        "vip_tiles", "plan",
     ),
 )
 def treecode_acc_flat(
@@ -1541,21 +1249,20 @@ def treecode_acc_flat(
     theta: float = DEFAULT_THETA,
     max_near: int = DEFAULT_MAX_NEAR,
     vip_tiles: int = DEFAULT_VIP_TILES,
-    interpret: bool | None = None,
+    plan: ExecutionPlan | None = None,
 ) -> jax.Array:
-    """Approximate acc (N, 3) with compacted asymmetric near lists (the
-    TPU production path).
+    """Approximate acc (N, 3) with compacted asymmetric near lists.
 
     ``aux_flat`` must come from :func:`build_tree_flat` with the same
     static knobs. Physics identical to :func:`treecode_acc` (theta
     acceptance, exact near field, monopole+quadrupole far field, exact
-    VIP rows both ways); cost is mean-bound instead of max-bound and the
-    near panels stream straight from HBM.
+    VIP rows both ways); the near cost is mean-bound instead of
+    max-bound.
     """
     ax, ay, az = treecode_acc_flat_cols(
         *_cols(pos), mass, aux_flat, eps2=eps2, compensate=compensate,
         G=G, tile=tile, src_tile=src_tile, theta=theta, max_near=max_near,
-        vip_tiles=vip_tiles, interpret=interpret)
+        vip_tiles=vip_tiles, plan=plan)
     return jnp.stack([ax, ay, az], axis=1)
 
 
@@ -1570,78 +1277,36 @@ def treecode_acc_flat_cols(
     theta: float = DEFAULT_THETA,
     max_near: int = DEFAULT_MAX_NEAR,
     vip_tiles: int = DEFAULT_VIP_TILES,
-    interpret: bool | None = None,
+    plan: ExecutionPlan | None = None,
 ):
     """Columnar core of :func:`treecode_acc_flat`: (N,) coordinate columns
     in, (ax, ay, az) columns out. The scanned run carries columns so no
-    (N, 3) array is ever materialized per step (measured ~12x cheaper per
-    elementwise op than the lane-padded (N, 3) layout)."""
+    (N, 3) array is ever materialized per step."""
+    plan = plan or execution_plan()
     n = xc.shape[0]
-    k_t, k_s, _, max_near, vip_src = _flat_static(
+    k_t, k_s, entries, max_near, vip_src = _flat_static(
         n, tile, src_tile, theta, max_near, vip_tiles)
     c2 = compensate * compensate
     gc3 = G * c2 * compensate
     f32 = jnp.float32
-    xc = xc.astype(f32)
-    yc = yc.astype(f32)
-    zc = zc.astype(f32)
-    mass = mass.astype(f32)
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+    xc, yc, zc, mass = (a.astype(f32) for a in (xc, yc, zc, mass))
 
     flat_src, chunk_tgt, near_mask, is_vip_body = aux_flat
-    if vip_src:
-        vip_tile_idx = jnp.nonzero(
-            is_vip_body.reshape(k_s, src_tile)[:, 0], size=vip_src,
-            fill_value=0,
-        )[0]
-        mass_tree = jnp.where(is_vip_body, 0.0, mass)
-    else:
-        mass_tree = mass
-
+    mass_tree = jnp.where(is_vip_body, 0.0, mass) if vip_src else mass
     com, m_tot, _, quad = tile_summaries_cols(xc, yc, zc, mass_tree,
                                               src_tile)
-    scaled = mass_tree * f32(gc3)
-    tiles = jnp.stack(
-        [xc.reshape(k_s, src_tile), yc.reshape(k_s, src_tile),
-         zc.reshape(k_s, src_tile), scaled.reshape(k_s, src_tile)],
-        axis=1,
-    )
-    tiles = jnp.concatenate([tiles, jnp.zeros((1, 4, src_tile), f32)],
-                            axis=0)                         # + sentinel row
-    accn = _near_field_flat_cols(xc, yc, zc, tiles, flat_src, chunk_tgt,
-                                 eps2=eps2, c2=c2, tile=tile,
-                                 src_tile=src_tile, interpret=interpret)
-    accf = _far_field_pallas_cols(xc, yc, zc, com, m_tot, quad, near_mask,
-                                  eps2=eps2, c2=c2, G=G, tile=tile,
-                                  interpret=interpret)
-    ax = accn[:n, 0] + accf[:, 0]
-    ay = accn[:n, 1] + accf[:, 1]
-    az = accn[:n, 2] + accf[:, 2]
+    src = _source_cols(xc, yc, zc, mass_tree * f32(gc3), src_tile)
+    nx, ny, nz = _near_field_flat_cols(
+        xc, yc, zc, src, flat_src, chunk_tgt, eps2=eps2, c2=c2, tile=tile,
+        src_tile=src_tile, max_chunks=max_near // entries, plan=plan)
+    fx, fy, fz = _far_field_cols(xc, yc, zc, com, m_tot, quad, near_mask,
+                                 eps2=eps2, c2=c2, G=G, tile=tile)
+    ax, ay, az = nx + fx, ny + fy, nz + fz
     if vip_src:
-        scaled_all = mass * f32(gc3)
-        # Row-granularity VIP gather/merge: VIP bodies are whole source
-        # tiles, so the panel gather and the reaction overwrite run as
-        # vip_src row slices of the (K_s, S) column view — contiguous
-        # DMA-shaped ops instead of W-element random access (measured at
-        # N=20,480: the elementwise gather+scatter merge cost ~0.09
-        # ms/step of the 1.70 ms step).
-        vrow = lambda col: col.reshape(k_s, src_tile)[vip_tile_idx]
-        action, react = _vip_both_pallas_cols(
-            xc, yc, zc, scaled_all,
-            vrow(xc).reshape(-1), vrow(yc).reshape(-1),
-            vrow(zc).reshape(-1), vrow(scaled_all).reshape(-1),
-            eps2=eps2, c2=c2, interpret=interpret,
-        )
-
-        def merge(col, add, rrow):
-            out = (col + add).reshape(k_s, src_tile)
-            out = out.at[vip_tile_idx].set(rrow.reshape(-1, src_tile))
-            return out.reshape(n)
-
-        ax = merge(ax, action[:, 0], react[0, :])
-        ay = merge(ay, action[:, 1], react[1, :])
-        az = merge(az, action[:, 2], react[2, :])
+        vip_tile_idx, _ = _vip_body_idx(is_vip_body, k_s, src_tile, vip_src)
+        ax, ay, az = _apply_vip(ax, ay, az, xc, yc, zc, mass, vip_tile_idx,
+                                k_s=k_s, src_tile=src_tile, gc3=gc3,
+                                eps2=eps2, c2=c2, plan=plan)
     return ax, ay, az
 
 
@@ -1649,7 +1314,7 @@ def treecode_acc_flat_cols(
     jax.jit,
     static_argnames=(
         "eps2", "compensate", "G", "tile", "theta", "max_near", "vip_tiles",
-        "use_pallas", "interpret", "mac_tau",
+        "mac_tau",
     ),
 )
 def treecode_acc(
@@ -1664,11 +1329,10 @@ def treecode_acc(
     theta: float = DEFAULT_THETA,
     max_near: int = DEFAULT_MAX_NEAR,
     vip_tiles: int = DEFAULT_VIP_TILES,
-    use_pallas: bool | None = None,
-    interpret: bool | None = None,
     mac_tau: float = 0.0,
 ) -> jax.Array:
-    """Approximate acc (N, 3): theta-criterion near/far split + exact VIPs.
+    """Approximate acc (N, 3): theta-criterion near/far split + exact VIPs
+    (the dense per-target path, plain XLA on every platform).
 
     Bodies should be Morton-sorted. ``max_near >= K`` is exact. ``aux``
     (from :func:`build_tree` with the same static knobs) reuses cached
@@ -1681,73 +1345,39 @@ def treecode_acc(
     f32 = jnp.float32
     pos = pos.astype(f32)
     mass = mass.astype(f32)
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
 
     if aux is None:
         aux = build_tree(pos, mass, tile=tile, theta=theta,
                          max_near=max_near, vip_tiles=vip_tiles,
                          mac_tau=mac_tau, eps2=eps2, compensate=compensate)
     near_idx, near_mask, is_vip_body = aux
-    if vip_tiles:
-        vip_tile_idx = jnp.nonzero(
-            is_vip_body.reshape(k, tile)[:, 0], size=vip_tiles, fill_value=0
-        )[0]
-        vip_body_idx = (vip_tile_idx[:, None] * tile
-                        + jnp.arange(tile, dtype=jnp.int32)[None, :]).reshape(-1)
-        mass_tree = jnp.where(is_vip_body, 0.0, mass)
-    else:
-        mass_tree = mass
-
+    mass_tree = jnp.where(is_vip_body, 0.0, mass) if vip_tiles else mass
     com, m_tot, _, quad = tile_summaries_cols(*_cols(pos), mass_tree, tile)
 
-    scaled_tree_mass = mass_tree * f32(gc3)
-    if use_pallas:
-        panels = _gather_panels_pallas(pos, scaled_tree_mass, near_idx,
-                                       tile, interpret)
-        acc = _near_field_pallas(pos, panels, eps2=eps2, c2=c2, tile=tile,
-                                 interpret=interpret)
-    else:
-        panels = _gather_panels(pos, scaled_tree_mass, near_idx, tile)
-        acc = _near_field_xla(pos, panels, eps2=eps2, c2=c2, tile=tile)
-
+    panels = _gather_panels(pos, mass_tree * f32(gc3), near_idx, tile)
+    acc = _near_field_xla(pos, panels, eps2=eps2, c2=c2, tile=tile)
     if max_near < k:
-        far = _far_field_pallas if use_pallas else _far_field
-        acc = acc + far(pos, com, m_tot, quad, near_mask,
-                        eps2=eps2, c2=c2, G=G, tile=tile,
-                        **({"interpret": interpret} if use_pallas else {}))
+        acc = acc + _far_field(pos, com, m_tot, quad, near_mask,
+                               eps2=eps2, c2=c2, G=G, tile=tile)
 
     if vip_tiles:
-        scaled_all = mass * f32(gc3)                            # original mass
-        if use_pallas:
-            # One rectangular sweep yields both directions (Newton's 3rd
-            # law): action of VIPs on every body + VIP rows' complete acc.
-            action, acc_vip = _vip_both_pallas(
-                pos, scaled_all, pos[vip_body_idx], scaled_all[vip_body_idx],
-                eps2=eps2, c2=c2, interpret=interpret,
-            )
-            acc = acc + action
-        else:
-            pos_v = pos[vip_body_idx]                           # (W, 3)
-            acc = acc + _dense_sweep(pos, pos_v, scaled_all[vip_body_idx],
-                                     eps2=eps2, c2=c2,
-                                     use_pallas=False, interpret=interpret)
-            acc_vip = _dense_sweep(pos_v, pos, scaled_all, eps2=eps2, c2=c2,
-                                   use_pallas=False, interpret=interpret)
+        _, vip_body_idx = _vip_body_idx(is_vip_body, k, tile, vip_tiles)
+        scaled_all = mass * f32(gc3)
+        pos_v = pos[vip_body_idx]                               # (W, 3)
+        acc = acc + _dense_sweep(pos, pos_v, scaled_all[vip_body_idx],
+                                 eps2=eps2, c2=c2)
+        acc_vip = _dense_sweep(pos_v, pos, scaled_all, eps2=eps2, c2=c2)
         acc = acc.at[vip_body_idx].set(acc_vip)
     return acc
 
 
 # ------------------------------------------------ hierarchical far field
-# Round-3 centerpiece (VERDICT r2 #1/#4). The single-level far field
-# sweeps every body against all K_s source tiles — O(N * K_s), 25 of
-# ~98 ms at N=262k and the wall toward N=1M. This section replaces it
+# The single-level far field sweeps every body against all K_s source
+# tiles — O(N * K_s), the wall toward N=1M. This section replaces it
 # with a BINARY MERGE HIERARCHY over the Morton source tiles plus
-# COMPACTED multi-level work lists (the measured round-2 lesson: masked
-# Pallas lanes still execute; structural sparsity needs compacted lists,
-# not masks — docs/acceptance.md).
+# COMPACTED multi-level work lists (masked lanes still execute;
+# structural sparsity needs compacted lists, not masks —
+# docs/acceptance.md).
 #
 #   * Levels: level 0 = the src_tile-body Morton tiles; level l merges
 #     PAIRS of level-(l-1) nodes (branch=2: the finer level granularity
@@ -1780,10 +1410,12 @@ def treecode_acc(
 #     strength m/d^2 so capacity overflow sheds the weakest
 #     contributors; sentinel entries fetch an all-zero summary row and
 #     contribute exactly nothing.
-#   * Kernel: mirrors _near_flat_kernel — scalar-prefetched (1, 128)
-#     summary fetches, nodes on sublanes x 128-body target rows on
-#     lanes, revisiting (8, T) output blocks, aliased accumulator across
-#     SMEM segments.
+#   * Evaluation (_far_field_hier_cols): on the GPU a Pallas (Triton)
+#     kernel with the near kernel's skeleton — one program per target
+#     block walks its row's far-list slice, FAR_GROUP node summaries per
+#     loop step; elsewhere the plain XLA form (per chunk, a gather of
+#     FAR_ENTRIES summaries and a reduction over them, then a
+#     fixed-order per-row sum).
 #
 # The reference has no tree at all; `kernel.cu:73` is cited as the perf
 # target only.
@@ -1792,15 +1424,17 @@ DEFAULT_HIER_TAU = 0.01   # hier MAC tolerance (own scale: the (d-r)^5
                           # convergence-aware denominator shifts the
                           # score magnitudes; calibrated frontier in
                           # docs/acceptance.md)
-FAR_ENTRIES = 64          # far-list node entries per kernel grid step
+FAR_ENTRIES = 64          # far-list node entries per work-list chunk
+                          # (an algorithm default, not yet tuned on the
+                          # GPU)
 HIER_MIN_NODES = 16       # coarsest level keeps at least this many nodes
 DEFAULT_HIER_TILE = 128   # target-row granularity of the hierarchical
                           # path: near-work is FLAT from 32 to 128 (the
                           # per-body-union acceptance makes adjacent
                           # tiles' open sets nearly identical; measured
                           # 10.62M near-work units at both), and 128-body
-                          # rows keep the far kernel's grid steps fed
-                          # (128 x 64 x ~40 ops vs 32 x 64 x ~40).
+                          # rows give each far chunk 4x the work per
+                          # fetched node summary.
 
 
 def _level_plan(k_s: int, branch: int = HIER_BRANCH,
@@ -2090,7 +1724,7 @@ def build_tree_hier_cols(
     compensate: float = 0.1,
     union_coarse: bool = True,
 ):
-    """Hierarchical acceptance structures (the round-3 production path).
+    """Hierarchical acceptance structures (the production path).
 
     Returns ``(flat_src, chunk_tgt, far_src, far_tgt, is_vip_body)``:
     the near work lists exactly as :func:`build_tree_flat_cols` plus
@@ -2143,255 +1777,175 @@ def build_tree_hier_cols(
 
 
 def _summary_panel(levels):
-    """(K_total + 1, 128) raw node summaries for the far kernel.
+    """(K_total + 1, 11) node summaries of every level for the far field.
 
-    Row layout (lanes 0..10): cx cy cz m qxx qyy qzz qxy qxz qyz tr;
-    the final all-zero row is the sentinel (contributes exactly nothing).
-    Lane-padding to 128 makes each fetch one 512-byte DMA; the array is
-    K_total-sized so the 11->128 padding costs ~2 MiB of HBM at N=1M.
+    Columns: cx cy cz m qxx qyy qzz qxy qxz qyz tr; the final all-zero
+    row is the sentinel (contributes exactly nothing).
     """
     cat = lambda i: jnp.concatenate([lv[i] for lv in levels])
     qs = [jnp.concatenate([lv[6][i] for lv in levels]) for i in range(6)]
     tr = qs[0] + qs[1] + qs[2]
     summ = jnp.stack([cat(0), cat(1), cat(2), cat(3)] + qs + [tr], axis=1)
-    summ = jnp.pad(summ, ((0, 1), (0, 128 - summ.shape[1])))
-    # (K+1, 1, 128): a (1, 1, 128) block satisfies Mosaic's last-two-dims
-    # rule (the sublane dim equals the array dim), like the far mask in
-    # _far_field_pallas_cols.
-    return summ[:, None, :]
+    return jnp.pad(summ, ((0, 1), (0, 0)))
 
 
-def _far_hier_kernel(ctgt_ref, fsrc_ref, rows_ref, acc_ref, *refs,
-                     c2, eps2, gc, entries, k_t):
-    """Compacted multi-level far kernel: FAR_ENTRIES node summaries per
-    grid step, fetched straight from HBM by scalar-prefetched index maps
-    (512 B each), evaluated against a (tile,)-body target row resident
-    on lanes. Monopole+quadrupole of the softened kernel — the same
-    coefficients as _far_kernel, with nodes on SUBLANES so no transpose
-    exists anywhere. Revisiting (1, 8, T) output blocks selected by the
-    chunk's target tag; sentinel chunks (tag == K_t) skip all compute;
-    the accumulator aliases the output across SMEM segments.
-    """
-    out_ref = refs[entries]
-    p = pl.program_id(0)
-    tgt = ctgt_ref[p]
-    prev = ctgt_ref[jnp.maximum(p - 1, 0)]
-    first = jnp.logical_or(p == 0, tgt != prev)
+FAR_GROUP = 16            # far-kernel node entries per loop step
 
-    @pl.when(tgt != k_t)
-    def _():
-        s = jnp.concatenate([refs[e][0] for e in range(entries)], axis=0)
-        xi = rows_ref[0, 0:1, :]                    # (1, T)
-        yi = rows_ref[0, 1:2, :]
-        zi = rows_ref[0, 2:3, :]
-        dx = s[:, 0:1] - xi                         # (E, T)
-        dy = s[:, 1:2] - yi
-        dz = s[:, 2:3] - zi
-        m = s[:, 3:4]
-        r2 = dx * dx + dy * dy + dz * dz
-        u2 = 1.0 / (c2 * r2 + eps2)
+
+def _far_hier_kernel(first_ref, count_ref, fsrc_ref, xt_ref, yt_ref, zt_ref,
+                     *refs, c2: float, eps2: float, gc: float,
+                     blocks_per_row: int):
+    """Compacted multi-level far field for the GPU (Pallas, Triton): one
+    program per block of a target row, looping over that row's slice of
+    the far list ``FAR_GROUP`` node ids at a time, each group's summaries
+    gathered from the summary columns; the monopole + quadrupole
+    expansion of :func:`_far_field_cols`, summed over the group into
+    registers. Each program writes only its own rows (no atomics)."""
+    summ = refs[:11]          # cx cy cz m qxx qyy qzz qxy qxz qyz tr
+    ax_ref, ay_ref, az_ref = refs[11:]
+    row = pl.program_id(0) // blocks_per_row
+    g0 = first_ref[row] * (FAR_ENTRIES // FAR_GROUP)
+    g1 = g0 + count_ref[row] * (FAR_ENTRIES // FAR_GROUP)
+    xi = xt_ref[...][None, :]                           # (1, TB)
+    yi = yt_ref[...][None, :]
+    zi = zt_ref[...][None, :]
+    c4 = c2 * c2
+    c6 = c4 * c2
+
+    def body(g, acc):
+        sx, sy, sz = acc
+        idx = fsrc_ref[pl.ds(pl.multiple_of(g * FAR_GROUP, FAR_GROUP),
+                             FAR_GROUP)]
+        col = [r[idx][:, None] for r in summ]           # (G, 1) each
+        dx = col[0] - xi                                # (G, TB)
+        dy = col[1] - yi
+        dz = col[2] - zi
+        u2 = 1.0 / (c2 * (dx * dx + dy * dy + dz * dz) + eps2)
         u = jnp.sqrt(u2)
         u3 = u2 * u
         u5 = u3 * u2
-        u7 = u5 * u2
-        sdx = s[:, 4:5] * dx + s[:, 7:8] * dy + s[:, 8:9] * dz
-        sdy = s[:, 7:8] * dx + s[:, 5:6] * dy + s[:, 9:10] * dz
-        sdz = s[:, 8:9] * dx + s[:, 9:10] * dy + s[:, 6:7] * dz
+        sdx = col[4] * dx + col[7] * dy + col[8] * dz
+        sdy = col[7] * dx + col[5] * dy + col[9] * dz
+        sdz = col[8] * dx + col[9] * dy + col[6] * dz
         q = dx * sdx + dy * sdy + dz * sdz
-        c4 = c2 * c2
-        c6 = c4 * c2
-        wd = (m * c2 * u3 - 1.5 * c4 * s[:, 10:11] * u5
-              + 7.5 * c6 * q * u7) * gc
-        ws = (-3.0 * c4 * u5) * gc
-        t = rows_ref.shape[2]
-        upd = jnp.concatenate(
-            [
-                jnp.sum(wd * dx + ws * sdx, axis=0, keepdims=True),
-                jnp.sum(wd * dy + ws * sdy, axis=0, keepdims=True),
-                jnp.sum(wd * dz + ws * sdz, axis=0, keepdims=True),
-                jnp.zeros((5, t), out_ref.dtype),
-            ],
-            axis=0,
-        )[None]
+        wd = (col[3] * c2 * u3 - 1.5 * c4 * col[10] * u5
+              + 7.5 * c6 * q * u5 * u2)
+        ws = -3.0 * c4 * u5
+        return (sx + jnp.sum(wd * dx + ws * sdx, axis=0),
+                sy + jnp.sum(wd * dy + ws * sdy, axis=0),
+                sz + jnp.sum(wd * dz + ws * sdz, axis=0))
 
-        @pl.when(first)
-        def _():
-            out_ref[...] = acc_ref[...] + upd
-
-        @pl.when(jnp.logical_not(first))
-        def _():
-            out_ref[...] += upd
+    zero = jnp.zeros((xi.shape[1],), jnp.float32)
+    sx, sy, sz = lax.fori_loop(g0, g1, body, (zero, zero, zero))
+    ax_ref[...] = gc * sx
+    ay_ref[...] = gc * sy
+    az_ref[...] = gc * sz
 
 
-def _far_hier_kernel_vmem(ctgt_ref, fsrc_ref, rows_ref, acc_ref, summ_ref,
-                          out_ref, *, c2, eps2, gc, entries, k_t):
-    """VMEM-resident variant of :func:`_far_hier_kernel`: the WHOLE
-    summary panel lives in VMEM (one (K_total+1, 128) block, constant
-    index map) and each grid step gathers its FAR_ENTRIES node rows with
-    dynamic sublane slices — no per-entry HBM DMA exists.
-
-    Why: the HBM-prefetch kernel issues FAR_ENTRIES scattered 512-byte
-    DMAs per grid step; at small N the far field is latency-bound on
-    those (measured at N=20,480 tuned: 0.44 ms/step for ~809 used chunks
-    = 26 MB of 512-B fetches at an effective ~59 GB/s). Below
-    ``_SUMM_VMEM_BYTES`` the panel fits VMEM whole, turning the gather
-    into register-speed loads (the paged-attention pattern). Physics
-    identical; selected automatically in the callers.
-    """
-    p = pl.program_id(0)
-    tgt = ctgt_ref[p]
-    prev = ctgt_ref[jnp.maximum(p - 1, 0)]
-    first = jnp.logical_or(p == 0, tgt != prev)
-
-    @pl.when(tgt != k_t)
-    def _():
-        s = jnp.concatenate(
-            [summ_ref[pl.ds(fsrc_ref[p * entries + e], 1), :]
-             for e in range(entries)], axis=0)           # (E, 128)
-        xi = rows_ref[0, 0:1, :]                         # (1, T)
-        yi = rows_ref[0, 1:2, :]
-        zi = rows_ref[0, 2:3, :]
-        dx = s[:, 0:1] - xi                              # (E, T)
-        dy = s[:, 1:2] - yi
-        dz = s[:, 2:3] - zi
-        m = s[:, 3:4]
-        r2 = dx * dx + dy * dy + dz * dz
-        u2 = 1.0 / (c2 * r2 + eps2)
-        u = jnp.sqrt(u2)
-        u3 = u2 * u
-        u5 = u3 * u2
-        u7 = u5 * u2
-        sdx = s[:, 4:5] * dx + s[:, 7:8] * dy + s[:, 8:9] * dz
-        sdy = s[:, 7:8] * dx + s[:, 5:6] * dy + s[:, 9:10] * dz
-        sdz = s[:, 8:9] * dx + s[:, 9:10] * dy + s[:, 6:7] * dz
-        q = dx * sdx + dy * sdy + dz * sdz
-        c4 = c2 * c2
-        c6 = c4 * c2
-        wd = (m * c2 * u3 - 1.5 * c4 * s[:, 10:11] * u5
-              + 7.5 * c6 * q * u7) * gc
-        ws = (-3.0 * c4 * u5) * gc
-        t = rows_ref.shape[2]
-        upd = jnp.concatenate(
-            [
-                jnp.sum(wd * dx + ws * sdx, axis=0, keepdims=True),
-                jnp.sum(wd * dy + ws * sdy, axis=0, keepdims=True),
-                jnp.sum(wd * dz + ws * sdz, axis=0, keepdims=True),
-                jnp.zeros((5, t), out_ref.dtype),
-            ],
-            axis=0,
-        )[None]
-
-        @pl.when(first)
-        def _():
-            out_ref[...] = acc_ref[...] + upd
-
-        @pl.when(jnp.logical_not(first))
-        def _():
-            out_ref[...] += upd
+FAR_WARPS = 4
+FAR_STAGES = 2
 
 
-# Whole-panel VMEM residency threshold for the far kernel: the summary
-# panel is (K_total + 1) x 128 f32 = 512 B/node. 3 MiB covers N=262,144
-# at src_tile=64 (K_total ~ 5,460 nodes = 2.8 MiB) while leaving the
-# rest of VMEM to the rows/acc pipeline; past it (524k+) the
-# scalar-prefetch HBM kernel takes over (the DMA latency amortizes at
-# large N where compute dominates).
-_SUMM_VMEM_BYTES = 3 * 2**20
+def _far_field_hier_kernel(xc, yc, zc, summ, far_src, far_tgt, *,
+                           eps2: float, c2: float, G: float, tile: int,
+                           interpret: bool = False):
+    """Kernel form of :func:`_far_field_hier_cols` (same arguments)."""
+    n = xc.shape[0]
+    rows = _pow2_tile(tile, NEAR_ROWS)
+    first, count = _row_ranges(far_tgt, n // tile)
+    blk = pl.BlockSpec((rows,), lambda p: (p,))
+    whole = pl.no_block_spec
+    out = jax.ShapeDtypeStruct((n,), jnp.float32)
+    return pl.pallas_call(
+        functools.partial(_far_hier_kernel, c2=float(c2), eps2=float(eps2),
+                          gc=float(G * math.sqrt(c2)),
+                          blocks_per_row=tile // rows),
+        grid=(n // rows,),
+        in_specs=[whole, whole, whole, blk, blk, blk] + [whole] * 11,
+        out_specs=[blk, blk, blk],
+        out_shape=[out, out, out],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=FAR_WARPS,
+                                             num_stages=FAR_STAGES),
+        interpret=interpret,
+        name="nbody_far_hier",
+    )(first, count, far_src.astype(jnp.int32), xc, yc, zc,
+      *(summ[:, k] for k in range(11)))
 
 
 def _far_field_hier_cols(xc, yc, zc, summ, far_src, far_tgt, *,
                          eps2: float, c2: float, G: float, tile: int,
-                         interpret: bool,
-                         seg_budget: int = _SEG_PREFETCH_INT32):
-    """(K_t + 1, 8, T) raw far accumulator (rows 0..2 of axis 1 are the
-    acceleration columns; the trailing target row is sentinel scratch).
-    Segmented so the scalar prefetch fits SMEM, accumulator aliased
-    through the segments (same structure as _near_field_flat_cols).
-    Small summary panels (< _SUMM_VMEM_BYTES) ride the VMEM-resident
-    gather kernel instead of per-entry HBM DMAs."""
+                         max_chunks: int, plan: ExecutionPlan):
+    """Compacted multi-level far field, (ax, ay, az) columns of the
+    ``tile``-body target rows in ``xc``: each far chunk is
+    ``FAR_ENTRIES`` node summaries (rows of ``summ``,
+    :func:`_summary_panel`) against one target row. ``max_chunks`` bounds
+    any row's chunk count (``far_max / FAR_ENTRIES``). The plan picks the
+    GPU kernel or the plain XLA form."""
+    if plan.far_kernel:
+        return _far_field_hier_kernel(
+            xc, yc, zc, summ, far_src, far_tgt, eps2=eps2, c2=c2, G=G,
+            tile=tile, interpret=plan.interpret)
+    return _far_field_hier_xla(
+        xc, yc, zc, summ, far_src, far_tgt, eps2=eps2, c2=c2, G=G,
+        tile=tile, max_chunks=max_chunks)
+
+
+def _far_field_hier_xla(xc, yc, zc, summ, far_src, far_tgt, *,
+                        eps2: float, c2: float, G: float, tile: int,
+                        max_chunks: int, block: int | None = None):
+    """Plain XLA form of :func:`_far_field_hier_cols`: the monopole +
+    quadrupole of the softened kernel (coefficients as in
+    :func:`_far_field_cols`) per chunk, in ``block``-chunk steps of a loop
+    (one XLA reduction fusion each), then the deterministic per-row
+    reduction :func:`_row_sums`.
+    """
     n = xc.shape[0]
     k_t = n // tile
-    f32 = jnp.float32
     n_chunks = far_tgt.shape[0]
-    rows = jnp.stack(
-        [xc.reshape(k_t, tile), yc.reshape(k_t, tile),
-         zc.reshape(k_t, tile), jnp.zeros((k_t, tile), f32)], axis=1,
-    )                                                   # (K_t, 4, T)
-    rows = jnp.concatenate([rows, jnp.zeros((1, 4, tile), f32)], axis=0)
-    acc = jnp.zeros((k_t + 1, 8, tile), f32)
-    gc = G * math.sqrt(c2)
+    k_sent = summ.shape[0] - 1
+    c = math.sqrt(c2)
+    c4 = c2 * c2
+    c6 = c4 * c2
+    gc = G * c
+    tx, ty, tz = (jnp.concatenate([a, jnp.zeros((tile,), a.dtype)])
+                  .reshape(k_t + 1, tile) for a in (xc, yc, zc))
+    b = block or max(1, _PAIR_BUDGET // (4 * tile * FAR_ENTRIES))
+    b = min(b, n_chunks)
+    pad = -n_chunks % b
+    ft = jnp.concatenate([far_tgt, jnp.full((pad,), k_t, jnp.int32)])
+    fs = jnp.concatenate([far_src, jnp.full((pad * FAR_ENTRIES,), k_sent,
+                                            jnp.int32)])
 
-    def make_map(s):
-        return lambda p, ct, fs: (fs[p * FAR_ENTRIES + s], 0, 0)
+    def per_block(args):
+        ft_b, fs_b = args                               # (B,), (B*E,)
+        s = summ[fs_b.reshape(b, FAR_ENTRIES)]          # (B, E, 11)
+        col = lambda i: s[:, :, i][:, :, None]          # (B, E, 1)
+        dx = col(0) - tx[ft_b][:, None, :]              # (B, E, T)
+        dy = col(1) - ty[ft_b][:, None, :]
+        dz = col(2) - tz[ft_b][:, None, :]
+        u2 = 1.0 / (c2 * (dx * dx + dy * dy + dz * dz) + eps2)
+        u = jnp.sqrt(u2)
+        u3 = u2 * u
+        u5 = u3 * u2
+        u7 = u5 * u2
+        sdx = col(4) * dx + col(7) * dy + col(8) * dz
+        sdy = col(7) * dx + col(5) * dy + col(9) * dz
+        sdz = col(8) * dx + col(9) * dy + col(6) * dz
+        q = dx * sdx + dy * sdy + dz * sdz
+        wd = (col(3) * c2 * u3 - 1.5 * c4 * col(10) * u5
+              + 7.5 * c6 * q * u7)
+        ws = -3.0 * c4 * u5
+        return gc * jnp.stack(
+            [jnp.sum(wd * dx + ws * sdx, axis=1),
+             jnp.sum(wd * dy + ws * sdy, axis=1),
+             jnp.sum(wd * dz + ws * sdz, axis=1)], axis=2)  # (B, T, 3)
 
-    use_vmem = summ.shape[0] * 512 <= _SUMM_VMEM_BYTES
-    summ2d = summ[:, 0, :] if use_vmem else None      # (K_total + 1, 128)
-
-    seg = max(1, min(n_chunks, seg_budget // (FAR_ENTRIES + 1)))
-    for start in range(0, n_chunks, seg):
-        size = min(seg, n_chunks - start)
-        if use_vmem:
-            grid_spec = pltpu.PrefetchScalarGridSpec(
-                num_scalar_prefetch=2,
-                grid=(size,),
-                in_specs=[
-                    pl.BlockSpec((1, 4, tile),
-                                 lambda p, ct, fs: (ct[p], 0, 0)),
-                    pl.BlockSpec((1, 8, tile),
-                                 lambda p, ct, fs: (ct[p], 0, 0)),
-                    pl.BlockSpec(summ2d.shape, lambda p, ct, fs: (0, 0)),
-                ],
-                out_specs=pl.BlockSpec((1, 8, tile),
-                                       lambda p, ct, fs: (ct[p], 0, 0)),
-            )
-            acc = pl.pallas_call(
-                functools.partial(_far_hier_kernel_vmem, c2=float(c2),
-                                  eps2=float(eps2), gc=float(gc),
-                                  entries=FAR_ENTRIES, k_t=k_t),
-                grid_spec=grid_spec,
-                out_shape=jax.ShapeDtypeStruct((k_t + 1, 8, tile), f32),
-                # operands: (ct, fs, rows, acc, summ) — acc aliases out.
-                input_output_aliases={3: 0},
-                cost_estimate=pl.CostEstimate(
-                    flops=45 * size * tile * FAR_ENTRIES,
-                    bytes_accessed=(size * tile * 12 + summ2d.size) * 4,
-                    transcendentals=size * tile * FAR_ENTRIES,
-                ),
-                interpret=interpret,
-            )(far_tgt[start:start + size],
-              far_src[start * FAR_ENTRIES:(start + size) * FAR_ENTRIES],
-              rows, acc, summ2d)
-            continue
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(size,),
-            in_specs=[
-                pl.BlockSpec((1, 4, tile), lambda p, ct, fs: (ct[p], 0, 0)),
-                pl.BlockSpec((1, 8, tile), lambda p, ct, fs: (ct[p], 0, 0)),
-            ] + [pl.BlockSpec((1, 1, 128), make_map(s))
-                 for s in range(FAR_ENTRIES)],
-            out_specs=pl.BlockSpec((1, 8, tile),
-                                   lambda p, ct, fs: (ct[p], 0, 0)),
-        )
-        acc = pl.pallas_call(
-            functools.partial(_far_hier_kernel, c2=float(c2),
-                              eps2=float(eps2), gc=float(gc),
-                              entries=FAR_ENTRIES, k_t=k_t),
-            grid_spec=grid_spec,
-            out_shape=jax.ShapeDtypeStruct((k_t + 1, 8, tile), f32),
-            # operands: (ct, fs, rows, acc, *summaries) — acc aliases out.
-            input_output_aliases={3: 0},
-            cost_estimate=pl.CostEstimate(
-                flops=45 * size * tile * FAR_ENTRIES,
-                bytes_accessed=(size * tile * 12
-                                + size * FAR_ENTRIES * 128) * 4,
-                transcendentals=size * tile * FAR_ENTRIES,
-            ),
-            interpret=interpret,
-        )(far_tgt[start:start + size],
-          far_src[start * FAR_ENTRIES:(start + size) * FAR_ENTRIES],
-          rows, acc, *([summ] * FAR_ENTRIES))
-    return acc
+    vals = lax.map(per_block, (ft.reshape(-1, b),
+                               fs.reshape(-1, b * FAR_ENTRIES)))
+    vals = vals.reshape(-1, tile, 3)[:n_chunks]
+    acc = _row_sums(vals, far_tgt, k_t, max_chunks).reshape(n, 3)
+    return acc[:, 0], acc[:, 1], acc[:, 2]
 
 
 def treecode_acc_hier_cols(
@@ -2407,7 +1961,7 @@ def treecode_acc_hier_cols(
     vip_tiles: int = DEFAULT_VIP_TILES,
     far_max: int = 0,
     branch: int = HIER_BRANCH,
-    interpret: bool | None = None,
+    plan: ExecutionPlan | None = None,
 ):
     """Columnar hierarchical treecode acceleration: (N,) coordinate
     columns in, (ax, ay, az) out.
@@ -2419,73 +1973,33 @@ def treecode_acc_hier_cols(
     path. Physics: exact near field + monopole/quadrupole far field at
     the topmost accepted ancestor + exact both-ways VIP sweep.
     """
+    plan = plan or execution_plan()
     n = xc.shape[0]
-    (k_t, k_s, _, max_near, vip_src, plan, k_total,
+    (k_t, k_s, entries, max_near, vip_src, levels_plan, k_total,
      far_max) = _hier_static(n, tile, src_tile, theta, max_near, vip_tiles,
                              far_max, branch)
     c2 = compensate * compensate
     gc3 = G * c2 * compensate
     f32 = jnp.float32
-    xc = xc.astype(f32)
-    yc = yc.astype(f32)
-    zc = zc.astype(f32)
-    mass = mass.astype(f32)
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+    xc, yc, zc, mass = (a.astype(f32) for a in (xc, yc, zc, mass))
 
     flat_src, chunk_tgt, far_src, far_tgt, is_vip_body = aux_hier
+    mass_tree = jnp.where(is_vip_body, 0.0, mass) if vip_src else mass
+    src = _source_cols(xc, yc, zc, mass_tree * f32(gc3), src_tile)
+    nx, ny, nz = _near_field_flat_cols(
+        xc, yc, zc, src, flat_src, chunk_tgt, eps2=eps2, c2=c2, tile=tile,
+        src_tile=src_tile, max_chunks=max_near // entries, plan=plan)
+    levels = _level_summaries(xc, yc, zc, mass_tree, src_tile, levels_plan,
+                              branch)
+    fx, fy, fz = _far_field_hier_cols(
+        xc, yc, zc, _summary_panel(levels), far_src, far_tgt, eps2=eps2,
+        c2=c2, G=G, tile=tile, max_chunks=far_max // FAR_ENTRIES, plan=plan)
+    ax, ay, az = nx + fx, ny + fy, nz + fz
     if vip_src:
-        vip_tile_idx = jnp.nonzero(
-            is_vip_body.reshape(k_s, src_tile)[:, 0], size=vip_src,
-            fill_value=0,
-        )[0]
-        mass_tree = jnp.where(is_vip_body, 0.0, mass)
-    else:
-        mass_tree = mass
-
-    scaled = mass_tree * f32(gc3)
-    tiles = jnp.stack(
-        [xc.reshape(k_s, src_tile), yc.reshape(k_s, src_tile),
-         zc.reshape(k_s, src_tile), scaled.reshape(k_s, src_tile)],
-        axis=1,
-    )
-    tiles = jnp.concatenate([tiles, jnp.zeros((1, 4, src_tile), f32)],
-                            axis=0)
-    accn = _near_field_flat_cols(xc, yc, zc, tiles, flat_src, chunk_tgt,
-                                 eps2=eps2, c2=c2, tile=tile,
-                                 src_tile=src_tile, interpret=interpret)
-    levels = _level_summaries(xc, yc, zc, mass_tree, src_tile, plan, branch)
-    summ = _summary_panel(levels)
-    accf = _far_field_hier_cols(xc, yc, zc, summ, far_src, far_tgt,
-                                eps2=eps2, c2=c2, G=G, tile=tile,
-                                interpret=interpret)
-    ax = accn[:n, 0] + accf[:k_t, 0, :].reshape(n)
-    ay = accn[:n, 1] + accf[:k_t, 1, :].reshape(n)
-    az = accn[:n, 2] + accf[:k_t, 2, :].reshape(n)
-    if vip_src:
-        scaled_all = mass * f32(gc3)
-        # Row-granularity VIP gather/merge: VIP bodies are whole source
-        # tiles, so the panel gather and the reaction overwrite run as
-        # vip_src row slices of the (K_s, S) column view — contiguous
-        # DMA-shaped ops instead of W-element random access (measured at
-        # N=20,480: the elementwise gather+scatter merge cost ~0.09
-        # ms/step of the 1.70 ms step).
-        vrow = lambda col: col.reshape(k_s, src_tile)[vip_tile_idx]
-        action, react = _vip_both_pallas_cols(
-            xc, yc, zc, scaled_all,
-            vrow(xc).reshape(-1), vrow(yc).reshape(-1),
-            vrow(zc).reshape(-1), vrow(scaled_all).reshape(-1),
-            eps2=eps2, c2=c2, interpret=interpret,
-        )
-
-        def merge(col, add, rrow):
-            out = (col + add).reshape(k_s, src_tile)
-            out = out.at[vip_tile_idx].set(rrow.reshape(-1, src_tile))
-            return out.reshape(n)
-
-        ax = merge(ax, action[:, 0], react[0, :])
-        ay = merge(ay, action[:, 1], react[1, :])
-        az = merge(az, action[:, 2], react[2, :])
+        vip_tile_idx, _ = _vip_body_idx(is_vip_body, k_s, src_tile, vip_src)
+        ax, ay, az = _apply_vip(ax, ay, az, xc, yc, zc, mass, vip_tile_idx,
+                                k_s=k_s, src_tile=src_tile, gc3=gc3,
+                                eps2=eps2, c2=c2, plan=plan)
     return ax, ay, az
 
 
@@ -2555,62 +2069,43 @@ def hier_local_acc(xl, yl, zl, ml, xg, yg, zg, mass_g, aux, *, eps2: float,
                    compensate: float, G: float, tile: int, src_tile: int,
                    max_near: int, vip_tiles: int, far_max: int,
                    theta: float = DEFAULT_THETA,
-                   branch: int = HIER_BRANCH, interpret: bool = False):
+                   branch: int = HIER_BRANCH,
+                   plan: ExecutionPlan | None = None):
     """Columnar hierarchical acc of LOCAL rows from replicated GLOBAL
-    sources: ``(axl, ayl, azl, react (8, W) | None, vip_body_idx | None)``
+    sources: ``(axl, ayl, azl, react | None, vip_body_idx | None)``
     — the multi-level analogue of :func:`flat_local_acc` (same psum
     contract for the VIP reactions; see parallel/tree.py)."""
+    plan = plan or execution_plan()
     flat_src, chunk_tgt, far_src, far_tgt, is_vip_g = aux
     n_g = xg.shape[0]
-    (_, k_s, _, max_near, vip_src, plan, k_total,
+    (_, k_s, entries, max_near, vip_src, levels_plan, k_total,
      far_max) = _hier_static(n_g, tile, src_tile, theta, max_near,
                              vip_tiles, far_max, branch)
     c2 = compensate * compensate
     gc3 = G * c2 * compensate
     f32 = jnp.float32
-    n_l = xl.shape[0]
-    k_t_l = n_l // tile
     mass_tree_g = jnp.where(is_vip_g, 0.0, mass_g) if vip_src else mass_g
-    scaled_g = mass_tree_g * f32(gc3)
-    tiles = jnp.stack(
-        [xg.reshape(k_s, src_tile), yg.reshape(k_s, src_tile),
-         zg.reshape(k_s, src_tile), scaled_g.reshape(k_s, src_tile)],
-        axis=1,
-    )
-    tiles = jnp.concatenate([tiles, jnp.zeros((1, 4, src_tile), f32)],
-                            axis=0)
-    accn = _near_field_flat_cols(xl, yl, zl, tiles, flat_src, chunk_tgt,
-                                 eps2=eps2, c2=c2, tile=tile,
-                                 src_tile=src_tile, interpret=interpret)
+    src = _source_cols(xg, yg, zg, mass_tree_g * f32(gc3), src_tile)
+    nx, ny, nz = _near_field_flat_cols(
+        xl, yl, zl, src, flat_src, chunk_tgt, eps2=eps2, c2=c2, tile=tile,
+        src_tile=src_tile, max_chunks=max_near // entries, plan=plan)
     levels = _level_summaries(xg.astype(f32), yg.astype(f32),
-                              zg.astype(f32), mass_tree_g, src_tile, plan,
-                              branch)
-    summ = _summary_panel(levels)
-    accf = _far_field_hier_cols(xl, yl, zl, summ, far_src, far_tgt,
-                                eps2=eps2, c2=c2, G=G, tile=tile,
-                                interpret=interpret)
-    ax = accn[:n_l, 0] + accf[:k_t_l, 0, :].reshape(n_l)
-    ay = accn[:n_l, 1] + accf[:k_t_l, 1, :].reshape(n_l)
-    az = accn[:n_l, 2] + accf[:k_t_l, 2, :].reshape(n_l)
+                              zg.astype(f32), mass_tree_g, src_tile,
+                              levels_plan, branch)
+    fx, fy, fz = _far_field_hier_cols(
+        xl, yl, zl, _summary_panel(levels), far_src, far_tgt, eps2=eps2,
+        c2=c2, G=G, tile=tile, max_chunks=far_max // FAR_ENTRIES, plan=plan)
+    ax, ay, az = nx + fx, ny + fy, nz + fz
     if not vip_src:
         return ax, ay, az, None, None
-    vip_tile_idx = jnp.nonzero(
-        is_vip_g.reshape(k_s, src_tile)[:, 0], size=vip_src, fill_value=0,
-    )[0]
-    vip_body_idx = (vip_tile_idx[:, None] * src_tile
-                    + jnp.arange(src_tile, dtype=jnp.int32)[None, :]
-                    ).reshape(-1)
+    _, vip_body_idx = _vip_body_idx(is_vip_g, k_s, src_tile, vip_src)
     scaled_all_g = mass_g * f32(gc3)
-    action, react = _vip_both_pallas_cols(
+    action, react = _vip_sweep_cols(
         xl, yl, zl, ml * f32(gc3),
         xg[vip_body_idx], yg[vip_body_idx], zg[vip_body_idx],
-        scaled_all_g[vip_body_idx],
-        eps2=eps2, c2=c2, interpret=interpret,
-    )
-    ax = ax + action[:, 0]
-    ay = ay + action[:, 1]
-    az = az + action[:, 2]
-    return ax, ay, az, react, vip_body_idx
+        scaled_all_g[vip_body_idx], eps2=eps2, c2=c2, plan=plan)
+    return (ax + action[0], ay + action[1], az + action[2], react,
+            vip_body_idx)
 
 
 @functools.partial(

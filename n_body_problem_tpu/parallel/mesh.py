@@ -17,10 +17,10 @@ RING_AXIS = "shards"
 
 
 def make_ring_mesh(n_devices: int | None = None, devices=None) -> Mesh:
-    """A 1-D mesh over ``n_devices`` (default: all local devices).
+    """A 1-D ring mesh over ``n_devices`` (default: all local devices).
 
-    On a real pod slice the default device order already follows the ICI
-    torus, so neighbor ``ppermute`` hops ride single ICI links.
+    The ring follows the algorithm alone: the cards of one host reach each
+    other all to all at the same rate.
     """
     if devices is None:
         devices = jax.devices()

@@ -1,7 +1,7 @@
 """ShardedSimulation — the multi-chip counterpart of Simulation.
 
-Scales BASELINE.json configs 4-5 (N=262k over 4 chips, N=1M+): bodies are
-sharded over a ring mesh, whole multi-step runs scan on-device inside one
+Scales BASELINE.json configs 4-5 (N=262k over 4 devices, N=1M+): bodies
+are sharded over a ring mesh, whole multi-step runs scan on-device inside one
 jit, and the only cross-chip traffic per force evaluation is the
 ``ppermute`` tile rotation (strategy ``"ring"``) or the half-ring packet
 exchange (strategy ``"half_ring"``, Newton's 3rd law across chips).
@@ -23,6 +23,7 @@ from jax import lax
 from n_body_problem_tpu.config import SimConfig
 from n_body_problem_tpu.parallel.mesh import RING_AXIS, make_ring_mesh
 from n_body_problem_tpu.parallel.ring import make_sharded_step, shard_state
+from n_body_problem_tpu.plan import ExecutionPlan, execution_plan
 from n_body_problem_tpu.state import SimState, pad_state
 
 
@@ -35,37 +36,28 @@ class ShardedSimulation:
         *,
         strategy: str = "ring",
         axis_name: str = RING_AXIS,
-        local_solver: str = "xla",
+        local_solver: str = "auto",
+        plan: ExecutionPlan | None = None,
     ):
+        self.plan = plan = plan or execution_plan()
+        staged = strategy == "treecode_staged"
         if cfg.tree_tile == 0:
             # Auto target-row granularity, mirroring Simulation.__init__:
-            # 128 when the per-chip hierarchical far field will engage
-            # (round 3), 32 on the single-level flat/dense paths.
-            from n_body_problem_tpu.ops.treecode import (
-                CHUNK_LANES as _CL,
-                DEFAULT_HIER_TILE as _HT,
-                FAR_ENTRIES as _FE,
-            )
+            # 128 when the per-device hierarchical far field will engage,
+            # 32 on the single-level flat/dense paths.
+            from n_body_problem_tpu.ops.treecode import DEFAULT_HIER_TILE
 
-            hier_flat = (
-                strategy in ("treecode", "treecode_staged")
-                and cfg.tree_hier
-                and state.n >= max(_CL, _FE * cfg.tree_src_tile)
-                and (
-                    (cfg.tree_flat_cap == 0
-                     and (jax.default_backend() == "tpu"
-                          or strategy == "treecode_staged"))
-                    or (cfg.tree_flat_cap > 0 and cfg.tree_far_cap > 0)
-                )
-            )
-            cfg = cfg.replace(tree_tile=_HT if hier_flat else 32)
+            hier = (strategy in ("treecode", "treecode_staged")
+                    and plan.tree_variant(cfg, state.n,
+                                          lists=plan.tree_lists or staged)
+                    == "hier")
+            cfg = cfg.replace(tree_tile=DEFAULT_HIER_TILE if hier else 32)
         self.cfg = cfg
         self.mesh = mesh if mesh is not None else make_ring_mesh()
         self.strategy = strategy
         n_dev = self.mesh.devices.size
         if strategy in ("treecode", "treecode_staged"):
-            self._init_treecode(cfg, state, axis_name,
-                                staged=strategy == "treecode_staged")
+            self._init_treecode(cfg, state, axis_name, staged=staged)
             return
         if cfg.morton_sort:
             import numpy as _np
@@ -92,7 +84,7 @@ class ShardedSimulation:
             force = half_ring_acc if strategy == "half_ring" else ring_acc
             fkw = dict(axis_name=axis_name, eps2=cfg.eps2,
                        compensate=cfg.compensate, G=cfg.G,
-                       local_solver=local_solver)
+                       local_solver=local_solver, plan=plan)
             row = P(axis_name)
             acc = jax.jit(jax.shard_map(
                 lambda p, m: force(p, m, **fkw),
@@ -104,7 +96,8 @@ class ShardedSimulation:
                 eps=self.state.eps, acc=acc, time=self.state.time,
                 step=self.state.step, n_real=self.state.n_real,
             )
-        step = make_sharded_step(cfg, self.mesh, axis_name, strategy, local_solver)
+        step = make_sharded_step(cfg, self.mesh, axis_name, strategy,
+                                 local_solver, plan)
 
         def run_steps(s: SimState, n: int) -> SimState:
             def body(carry, _):
@@ -134,7 +127,6 @@ class ShardedSimulation:
 
         from n_body_problem_tpu.ops.treecode import (
             CHUNK_LANES,
-            FAR_ENTRIES,
             suggest_flat_cap_sharded,
             suggest_hier_sharded,
             suggest_max_near,
@@ -160,18 +152,14 @@ class ShardedSimulation:
 
             cfg = cfg.replace(
                 tree_vip_tiles=resolve_vip_tiles(-1, state.n))
-        # Flat (mean-bound columnar) path: the TPU production
-        # configuration, mirroring Simulation.__init__'s auto-enable.
-        # The staged strategy is BUILT on the flat machinery (per-shard
-        # compacted work lists feed the ring stages), so it auto-plans
-        # on any backend.
-        use_flat = (
-            cfg.tree_flat_cap == 0
-            and (jax.default_backend() == "tpu" or staged)
-            and state.n >= CHUNK_LANES
-            and state.n % cfg.tree_src_tile == 0
-            and (state.n // cfg.tree_tile) % n_dev == 0
-        )
+        # Compacted flat/hier lists where the plan says so, mirroring
+        # Simulation.__init__. The staged strategy is BUILT on the flat
+        # machinery (per-shard compacted work lists feed the ring
+        # stages), so it plans them on every platform.
+        variant = self.plan.tree_variant(
+            cfg, state.n, n_dev, lists=self.plan.tree_lists or staged)
+        use_flat = (cfg.tree_flat_cap == 0 and variant != "dense"
+                    and (state.n // cfg.tree_tile) % n_dev == 0)
         if staged and not use_flat and cfg.tree_flat_cap <= 0:
             raise ValueError(
                 "treecode_staged needs the flat-list machinery: N must "
@@ -180,13 +168,7 @@ class ShardedSimulation:
                 f"n_dev={n_dev} (or pass an explicit tree_flat_cap)")
         src = (cfg.tree_src_tile
                if use_flat or cfg.tree_flat_cap > 0 else None)
-        use_hier = (
-            cfg.tree_hier
-            and state.n >= FAR_ENTRIES * cfg.tree_src_tile
-            and (state.n // cfg.tree_tile) % n_dev == 0
-            and (use_flat
-                 or (cfg.tree_flat_cap > 0 and cfg.tree_far_cap > 0))
-        )
+        use_hier = variant == "hier" and (use_flat or cfg.tree_flat_cap > 0)
         mac = dict(mac_tau=cfg.tree_mac_tau, eps2=cfg.eps2,
                    compensate=cfg.compensate)
         if use_hier:
@@ -229,7 +211,8 @@ class ShardedSimulation:
                     make_staged_force,
                 )
 
-                acc = jax.jit(make_staged_force(cfg, self.mesh, axis_name))(
+                acc = jax.jit(make_staged_force(
+                    cfg, self.mesh, axis_name, self.plan))(
                     self.state.pos, self.state.mass)
             else:
                 force = make_sharded_treecode_force(cfg, self.mesh,
@@ -246,9 +229,10 @@ class ShardedSimulation:
         if staged:
             from n_body_problem_tpu.parallel.stream import make_staged_run
 
-            run = make_staged_run(cfg, self.mesh, axis_name)
+            run = make_staged_run(cfg, self.mesh, axis_name, self.plan)
         else:
-            run = make_sharded_treecode_run(cfg, self.mesh, axis_name)
+            run = make_sharded_treecode_run(cfg, self.mesh, axis_name,
+                                            self.plan)
         donate = (0,) if cfg.donate else ()
         self._jit_tree_run = jax.jit(run, static_argnums=(1,),
                                      donate_argnums=donate)

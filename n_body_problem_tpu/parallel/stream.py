@@ -21,7 +21,7 @@ to a full ``ShardedSimulation`` strategy (``"treecode_staged"``):
   ``ppermute``-ing one (N/D)-body shard around the ring while every chip
   evaluates the near entries whose source tiles live in the visiting
   shard. Peak resident source data drops from O(N) to O(N/D) +
-  summaries; total ICI bytes are unchanged (the gather moved the same
+  summaries; total interconnect bytes are unchanged (the gather moved the same
   shards, all at once). Acceptance lists compact PER SOURCE SHARD at
   build time — same scores, same criterion, bucketed by which ring
   stage can serve them;
@@ -73,8 +73,8 @@ from n_body_problem_tpu.ops.treecode import (
     _chain_evals,
     _clamp_vip,
     _compact_open_lists,
+    _far_field_cols,
     _far_field_hier_cols,
-    _far_field_pallas_cols,
     _hier_open_masks,
     _level0_from_summaries,
     _level_plan,
@@ -82,13 +82,15 @@ from n_body_problem_tpu.ops.treecode import (
     _monopole_acc_mags,
     _near_field_flat_cols,
     _opening_scores,
+    _source_cols,
     _summary_panel,
     _tile_radius,
-    _vip_both_pallas_cols,
     _vip_src_tiles,
+    _vip_sweep_cols,
     tile_summaries_cols,
 )
 from n_body_problem_tpu.parallel.ring import RING_AXIS
+from n_body_problem_tpu.plan import ExecutionPlan, execution_plan
 from n_body_problem_tpu.state import SimState
 from n_body_problem_tpu.utils.morton import morton_keys_cols
 
@@ -109,7 +111,7 @@ def _staged_shapes(cfg: SimConfig, n_l: int, n_dev: int):
         # one chunk and _compact_open_lists emits ZERO chunks per row —
         # the near field (including the forced-open self tile) would
         # silently fall into the far field as a self-multipole at d~0.
-        # Fail loudly instead (ADVICE r4).
+        # Fail loudly instead.
         raise ValueError(
             f"staged streaming needs per-shard K_src >= entries: "
             f"N/D={n_l} gives {k_s_l} source tiles of {src} < "
@@ -150,7 +152,7 @@ def _staged_build(cfg: SimConfig, xl, yl, zl, ml, me, n_dev: int,
     vip_idx | None, is_vip_body_l | None)`` — everything the per-step
     :func:`_staged_acc` needs, compacted per source shard so each ring
     stage has a ready work list. Only summaries (and W VIP bodies)
-    cross the ICI; positions never replicate.
+    cross the interconnect; positions never replicate.
     """
     (tile, src, entries, k_t_l, k_s_l, k_s_g, max_near, cap, vip_src,
      hier) = _staged_shapes(cfg, xl.shape[0], n_dev)
@@ -243,12 +245,12 @@ def _staged_build(cfg: SimConfig, xl, yl, zl, ml, me, n_dev: int,
 
 
 def _staged_acc(cfg: SimConfig, xl, yl, zl, ml, me, aux, n_dev: int,
-                axis_name: str, interpret: bool):
+                axis_name: str, plan: ExecutionPlan):
     """One staged force evaluation of LOCAL rows (inside shard_map):
     ring-streamed near panels, replicated-summary far field (flat or
     hierarchical), psum-replicated VIP panel with psum'd reactions.
     Returns ``(axl, ayl, azl)`` — complete, VIP rows included."""
-    (tile, src, entries, k_t_l, k_s_l, k_s_g, _, _, vip_src,
+    (tile, src, entries, k_t_l, k_s_l, k_s_g, max_near, _, vip_src,
      hier) = _staged_shapes(cfg, xl.shape[0], n_dev)
     (flat_src_all, chunk_tgt_all, near_mask, far_src, far_tgt,
      vip_idx, is_vip_body_l) = aux
@@ -262,14 +264,9 @@ def _staged_acc(cfg: SimConfig, xl, yl, zl, ml, me, aux, n_dev: int,
     mass_tree_l = (jnp.where(is_vip_body_l, 0.0, ml)
                    if vip_src else ml)
 
-    # ---- ring-staged near field. After s ppermute hops the chip holds
-    # shard (me - s) mod D, so stage s uses that shard's work list.
-    payload0 = jnp.stack(
-        [xl.reshape(k_s_l, src), yl.reshape(k_s_l, src),
-         zl.reshape(k_s_l, src),
-         (mass_tree_l * f32(gc3)).reshape(k_s_l, src)],
-        axis=1,
-    )                                                    # (k_s_l, 4, S)
+    # ---- ring-staged near field. After s ppermute hops the device
+    # holds shard (me - s) mod D, so stage s uses that shard's work list.
+    payload0 = (xl, yl, zl, mass_tree_l * f32(gc3))      # 4 x (N/D,)
     stage_ids = (me - jnp.arange(n_dev, dtype=jnp.int32)) % n_dev
     perm = [(i, (i + 1) % n_dev) for i in range(n_dev)]
 
@@ -278,16 +275,16 @@ def _staged_acc(cfg: SimConfig, xl, yl, zl, ml, me, aux, n_dev: int,
         sid = stage_ids[s]
         fs = jnp.take(flat_src_all, sid, axis=0)
         ct = jnp.take(chunk_tgt_all, sid, axis=0)
-        tiles = jnp.concatenate(
-            [payload, jnp.zeros((1, 4, src), f32)], axis=0)
-        accn = accn + _near_field_flat_cols(
-            xl, yl, zl, tiles, fs, ct, eps2=cfg.eps2, c2=c2,
-            tile=tile, src_tile=src, interpret=interpret)
+        part = _near_field_flat_cols(
+            xl, yl, zl, _source_cols(*payload, src), fs, ct,
+            eps2=cfg.eps2, c2=c2, tile=tile, src_tile=src,
+            max_chunks=max_near // entries, plan=plan)
+        accn = tuple(a + p for a, p in zip(accn, part))
         payload = lax.ppermute(payload, axis_name, perm)
         return (payload, accn), None
 
-    accn0 = jnp.zeros(((k_t_l + 1) * tile, 8), f32)
-    (_, accn), _ = lax.scan(stage, (payload0, accn0),
+    zero = jnp.zeros((n_l,), f32)
+    (_, accn), _ = lax.scan(stage, (payload0, (zero, zero, zero)),
                             jnp.arange(n_dev, dtype=jnp.int32))
 
     # ---- far field from replicated summaries (per-step traffic: one
@@ -297,26 +294,21 @@ def _staged_acc(cfg: SimConfig, xl, yl, zl, ml, me, aux, n_dev: int,
     com_g, mt_g, rad_g, quad_g = (gather(a) for a in
                                   (com_l, mt_l, rad_l, quad_l))
     if hier is not None:
-        plan = hier[0]
+        levels_plan, far_max, _ = hier
         levels = _merge_levels(
-            _level0_from_summaries(com_g, mt_g, rad_g, quad_g), plan,
-            HIER_BRANCH)
-        summ = _summary_panel(levels)
-        accf = _far_field_hier_cols(xl, yl, zl, summ, far_src, far_tgt,
-                                    eps2=cfg.eps2, c2=c2, G=cfg.G,
-                                    tile=tile, interpret=interpret)
-        fax = accf[:k_t_l, 0, :].reshape(n_l)
-        fay = accf[:k_t_l, 1, :].reshape(n_l)
-        faz = accf[:k_t_l, 2, :].reshape(n_l)
-    else:
-        accf = _far_field_pallas_cols(
-            xl, yl, zl, com_g, mt_g, quad_g, near_mask,
+            _level0_from_summaries(com_g, mt_g, rad_g, quad_g),
+            levels_plan, HIER_BRANCH)
+        fax, fay, faz = _far_field_hier_cols(
+            xl, yl, zl, _summary_panel(levels), far_src, far_tgt,
             eps2=cfg.eps2, c2=c2, G=cfg.G, tile=tile,
-            interpret=interpret)
-        fax, fay, faz = accf[:, 0], accf[:, 1], accf[:, 2]
-    ax = accn[:n_l, 0] + fax
-    ay = accn[:n_l, 1] + fay
-    az = accn[:n_l, 2] + faz
+            max_chunks=far_max // FAR_ENTRIES, plan=plan)
+    else:
+        fax, fay, faz = _far_field_cols(
+            xl, yl, zl, com_g, mt_g, quad_g, near_mask,
+            eps2=cfg.eps2, c2=c2, G=cfg.G, tile=tile)
+    ax = accn[0] + fax
+    ay = accn[1] + fay
+    az = accn[2] + faz
     if not vip_src:
         return ax, ay, az
 
@@ -333,16 +325,16 @@ def _staged_acc(cfg: SimConfig, xl, yl, zl, ml, me, aux, n_dev: int,
     panel = lax.psum(
         jnp.stack([pick(xl), pick(yl), pick(zl), pick(scaled_all_l)]),
         axis_name)                                       # (4, V, S)
-    action, react = _vip_both_pallas_cols(
+    action, react = _vip_sweep_cols(
         xl, yl, zl, scaled_all_l,
         panel[0].reshape(-1), panel[1].reshape(-1),
         panel[2].reshape(-1), panel[3].reshape(-1),
-        eps2=cfg.eps2, c2=c2, interpret=interpret,
+        eps2=cfg.eps2, c2=c2, plan=plan,
     )
-    ax = ax + action[:, 0]
-    ay = ay + action[:, 1]
-    az = az + action[:, 2]
-    react = lax.psum(react, axis_name)                   # (8, W) complete
+    ax = ax + action[0]
+    ay = ay + action[1]
+    az = az + action[2]
+    react = lax.psum(react, axis_name)                   # 3 x (W,) complete
     vip_body_g = (vip_idx[:, None] * src
                   + jnp.arange(src, dtype=jnp.int32)[None, :]).reshape(-1)
     rel = vip_body_g - me * n_l
@@ -354,7 +346,8 @@ def _staged_acc(cfg: SimConfig, xl, yl, zl, ml, me, aux, n_dev: int,
 
 
 def make_staged_force(cfg: SimConfig, mesh: Mesh,
-                      axis_name: str = RING_AXIS) -> Callable:
+                      axis_name: str = RING_AXIS,
+                      plan: ExecutionPlan | None = None) -> Callable:
     """``(pos (N,3) sharded, mass (N,) sharded) -> acc (N,3) sharded`` —
     one staged treecode force evaluation (fresh acceptance build every
     call; the run loop caches the build across ``tree_rebuild_every``
@@ -367,13 +360,13 @@ def make_staged_force(cfg: SimConfig, mesh: Mesh,
     the per-chip TOTAL demand and any single stage serves a subset).
     """
     n_dev = mesh.devices.size
-    interpret = jax.default_backend() != "tpu"
+    plan = plan or execution_plan()
 
     def local(xl, yl, zl, ml):
         me = lax.axis_index(axis_name)
         aux = _staged_build(cfg, xl, yl, zl, ml, me, n_dev, axis_name)
         return _staged_acc(cfg, xl, yl, zl, ml, me, aux, n_dev,
-                           axis_name, interpret)
+                           axis_name, plan)
 
     row = P(axis_name)
     sharded = jax.shard_map(local, mesh=mesh, in_specs=(row,) * 4,
@@ -386,16 +379,9 @@ def make_staged_force(cfg: SimConfig, mesh: Mesh,
     return force
 
 
-def make_staged_flat_force(cfg: SimConfig, mesh: Mesh,
-                           axis_name: str = RING_AXIS) -> Callable:
-    """Round-4 prototype name, kept as an alias of
-    :func:`make_staged_force` (which now also supports VIP and the
-    hierarchical far field)."""
-    return make_staged_force(cfg, mesh, axis_name)
-
-
 def make_staged_run(cfg: SimConfig, mesh: Mesh,
-                    axis_name: str = RING_AXIS) -> Callable:
+                    axis_name: str = RING_AXIS,
+                    plan: ExecutionPlan | None = None) -> Callable:
     """``(sharded SimState, n_steps) -> (SimState, ids)`` — the staged
     counterpart of ``parallel.tree.make_sharded_treecode_run``: chunked
     global resort + per-chunk staged acceptance build + scanned steps
@@ -411,7 +397,7 @@ def make_staged_run(cfg: SimConfig, mesh: Mesh,
     r = cfg.tree_rebuild_every
     dt = cfg.dt
     n_dev = mesh.devices.size
-    interpret = jax.default_backend() != "tpu"
+    plan = plan or execution_plan()
 
     def local_run(*args):
         *cols_l, n_real, n_steps = args
@@ -436,7 +422,7 @@ def make_staged_run(cfg: SimConfig, mesh: Mesh,
 
             def force(px, py, pz):
                 return _staged_acc(cfg, px, py, pz, m, me, aux, n_dev,
-                                   axis_name, interpret)
+                                   axis_name, plan)
 
             if cfg.integrator == "leapfrog":
                 half = 0.5 * dt

@@ -8,7 +8,8 @@ simple, strong one for N up to a few million bodies:
   segment (= a contiguous range of acceptance tiles, spatially coherent
   by construction).
 - Per force evaluation, every chip ``all_gather``s positions (the only
-  per-step traffic: 12N bytes over ICI — O(N), against O(N * mean-near)
+  per-step traffic: 12N bytes over the interconnect — O(N), against
+  O(N * mean-near)
   local compute), rebuilds the global tile summaries redundantly (O(N)
   flops, trivial), and runs the single-chip machinery restricted to its
   own target rows: the acceptance matrices are (K/D, K), the near panels
@@ -44,13 +45,9 @@ from n_body_problem_tpu.config import SimConfig
 from n_body_problem_tpu.ops.treecode import (
     _acceptance,
     _far_field,
-    _far_field_pallas,
     _gather_panels,
-    _gather_panels_pallas,
-    _near_field_pallas,
     _near_field_xla,
     _tile_radius,
-    _vip_both_pallas,
     _dense_sweep,
     _clamp_vip,
     build_flat_local,
@@ -60,15 +57,16 @@ from n_body_problem_tpu.ops.treecode import (
     tile_summaries,
 )
 from n_body_problem_tpu.parallel.mesh import RING_AXIS
+from n_body_problem_tpu.plan import ExecutionPlan, execution_plan
 from n_body_problem_tpu.state import SimState
 from n_body_problem_tpu.utils.morton import morton_keys_cols, morton_keys_device
 
 
 def _local_treecode_acc(pos_l, mass_l, pos_g, mass_g, aux, *,
-                        eps2, compensate, G, tile, vip_tiles,
-                        use_pallas, interpret):
+                        eps2, compensate, G, tile, vip_tiles):
     """acc (N_local, 3) of local rows from ALL bodies (inside shard_map,
-    replicated sources). ``aux`` = (near_idx_l, near_mask_l, is_vip_g)."""
+    replicated sources; the dense per-target path, plain XLA).
+    ``aux`` = (near_idx_l, near_mask_l, is_vip_g)."""
     near_idx_l, near_mask_l, is_vip_g = aux
     n_g = pos_g.shape[0]
     k = n_g // tile
@@ -80,19 +78,10 @@ def _local_treecode_acc(pos_l, mass_l, pos_g, mass_g, aux, *,
     com, m_tot, _, quad = tile_summaries(pos_g, mass_tree_g, tile)
 
     scaled_tree = mass_tree_g * f32(gc3)
-    if use_pallas:
-        panels = _gather_panels_pallas(pos_g, scaled_tree, near_idx_l,
-                                       tile, interpret)
-        acc = _near_field_pallas(pos_l, panels, eps2=eps2, c2=c2, tile=tile,
-                                 interpret=interpret)
-        acc = acc + _far_field_pallas(pos_l, com, m_tot, quad, near_mask_l,
-                                      eps2=eps2, c2=c2, G=G, tile=tile,
-                                      interpret=interpret)
-    else:
-        panels = _gather_panels(pos_g, scaled_tree, near_idx_l, tile)
-        acc = _near_field_xla(pos_l, panels, eps2=eps2, c2=c2, tile=tile)
-        acc = acc + _far_field(pos_l, com, m_tot, quad, near_mask_l,
-                               eps2=eps2, c2=c2, G=G, tile=tile)
+    panels = _gather_panels(pos_g, scaled_tree, near_idx_l, tile)
+    acc = _near_field_xla(pos_l, panels, eps2=eps2, c2=c2, tile=tile)
+    acc = acc + _far_field(pos_l, com, m_tot, quad, near_mask_l,
+                           eps2=eps2, c2=c2, G=G, tile=tile)
 
     if vip_tiles:
         vip_tile_idx = jnp.nonzero(
@@ -101,19 +90,10 @@ def _local_treecode_acc(pos_l, mass_l, pos_g, mass_g, aux, *,
         vip_body_g = (vip_tile_idx[:, None] * tile
                       + jnp.arange(tile, dtype=jnp.int32)[None, :]).reshape(-1)
         scaled_all_g = mass_g * f32(gc3)
-        if use_pallas:
-            action, react = _vip_both_pallas(
-                pos_l, mass_l * f32(gc3),
-                pos_g[vip_body_g], scaled_all_g[vip_body_g],
-                eps2=eps2, c2=c2, interpret=interpret,
-            )
-        else:
-            action = _dense_sweep(pos_l, pos_g[vip_body_g],
-                                  scaled_all_g[vip_body_g], eps2=eps2, c2=c2,
-                                  use_pallas=False, interpret=interpret)
-            react = _dense_sweep(pos_g[vip_body_g], pos_l,
-                                 mass_l * f32(gc3), eps2=eps2, c2=c2,
-                                 use_pallas=False, interpret=interpret)
+        action = _dense_sweep(pos_l, pos_g[vip_body_g],
+                              scaled_all_g[vip_body_g], eps2=eps2, c2=c2)
+        react = _dense_sweep(pos_g[vip_body_g], pos_l, mass_l * f32(gc3),
+                             eps2=eps2, c2=c2)
         acc = acc + action
         react = lax.psum(react, RING_AXIS)                  # (W, 3) complete
         n_local = pos_l.shape[0]
@@ -124,8 +104,8 @@ def _local_treecode_acc(pos_l, mass_l, pos_g, mass_g, aux, *,
     return acc
 
 
-def _make_sharded_flat_run(cfg: SimConfig, mesh: Mesh,
-                           axis_name: str) -> Callable:
+def _make_sharded_flat_run(cfg: SimConfig, mesh: Mesh, axis_name: str,
+                           plan: ExecutionPlan) -> Callable:
     """Sharded counterpart of the single-chip COLUMNAR flat run
     (``simulation.make_treecode_run`` with ``tree_flat_cap > 0``): each
     chip carries twelve local (N/D,) columns, the global resort is one
@@ -138,12 +118,11 @@ def _make_sharded_flat_run(cfg: SimConfig, mesh: Mesh,
     src = cfg.tree_src_tile
     r = cfg.tree_rebuild_every
     dt = cfg.dt
-    interpret = jax.default_backend() != "tpu"
     sel = dict(tile=tile, src_tile=src, theta=cfg.tree_theta,
                max_near=cfg.tree_max_near, vip_tiles=cfg.tree_vip_tiles)
     akw = dict(eps2=cfg.eps2, compensate=cfg.compensate, G=cfg.G,
                tile=tile, src_tile=src, max_near=cfg.tree_max_near,
-               vip_tiles=cfg.tree_vip_tiles, interpret=interpret)
+               vip_tiles=cfg.tree_vip_tiles, plan=plan)
     flat_cap = cfg.tree_flat_cap
     # Hierarchical far field per chip (round 3): same decomposition, the
     # near/far lists compacted locally from the globally-redundant level
@@ -198,7 +177,7 @@ def _make_sharded_flat_run(cfg: SimConfig, mesh: Mesh,
                     axl, ayl, azl, react, vip_idx = flat_local_acc(
                         px, py, pz, m, pxg, pyg, pzg, mg, aux, **akw)
                 if react is not None:
-                    react = lax.psum(react, axis_name)   # (8, W) complete
+                    react = lax.psum(react, axis_name)   # 3 x (W,) complete
                     rel = vip_idx - me * n_l
                     dest = jnp.where((rel >= 0) & (rel < n_l), rel, n_l)
                     axl = axl.at[dest].set(react[0], mode="drop")
@@ -277,22 +256,21 @@ def make_sharded_treecode_run(
     cfg: SimConfig,
     mesh: Mesh,
     axis_name: str = RING_AXIS,
+    plan: ExecutionPlan | None = None,
 ) -> Callable:
-    """``(sharded SimState, n_steps) -> (SimState, ids)`` — the multi-chip
+    """``(sharded SimState, n_steps) -> (SimState, ids)`` — the multi-device
     counterpart of ``simulation.make_treecode_run`` (chunked global resort
     + cached local acceptance + scanned steps, all inside shard_map).
     With ``cfg.tree_flat_cap > 0`` the columnar mean-bound flat machinery
-    runs per chip (the TPU production path, see ``_make_sharded_flat_run``);
+    runs per device (the production path, see ``_make_sharded_flat_run``);
     otherwise the dense max-bound path below."""
     if cfg.tree_flat_cap > 0:
-        return _make_sharded_flat_run(cfg, mesh, axis_name)
+        return _make_sharded_flat_run(cfg, mesh, axis_name,
+                                      plan or execution_plan())
     tile = cfg.tree_tile
     r = cfg.tree_rebuild_every
     dt = cfg.dt
-    use_pallas = jax.default_backend() == "tpu"
-    interpret = not use_pallas
-    kw = dict(eps2=cfg.eps2, compensate=cfg.compensate, G=cfg.G, tile=tile,
-              use_pallas=use_pallas, interpret=interpret)
+    kw = dict(eps2=cfg.eps2, compensate=cfg.compensate, G=cfg.G, tile=tile)
     n_dev = mesh.devices.size
 
     def local_run(pos_l, vel_l, mass_l, eps_l, acc_l, ids_l, n_real, n_steps):
@@ -406,9 +384,7 @@ def make_sharded_treecode_force(cfg: SimConfig, mesh: Mesh,
     diagnostics): ``(pos, mass) sharded -> acc sharded``. Builds the
     acceptance fresh (no caching)."""
     tile = cfg.tree_tile
-    use_pallas = jax.default_backend() == "tpu"
-    kw = dict(eps2=cfg.eps2, compensate=cfg.compensate, G=cfg.G, tile=tile,
-              use_pallas=use_pallas, interpret=not use_pallas)
+    kw = dict(eps2=cfg.eps2, compensate=cfg.compensate, G=cfg.G, tile=tile)
     n_dev = mesh.devices.size
 
     def local(pos_l, mass_l, n_real):

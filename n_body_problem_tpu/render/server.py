@@ -86,6 +86,12 @@ class LiveViewer:
 
     def __init__(self, port: int, camera, *, exposure: float = 1.0,
                  host: str = "127.0.0.1", jpeg_quality: int = 85):
+        try:
+            import PIL.Image  # noqa: F401  (JPEG encoding)
+        except ImportError as e:
+            raise RuntimeError(
+                "the live viewer (--serve) needs Pillow for JPEG encoding; "
+                "write PNG frames with --render-every instead") from e
         self.camera = camera
         self.camera_lock = threading.Lock()
         self.exposure = exposure

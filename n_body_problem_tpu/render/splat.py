@@ -1,6 +1,6 @@
 """Device-side splat renderer.
 
-The TPU replacement for the reference's CUDA-GL interop render path
+The device-side replacement for the reference's CUDA-GL interop render path
 (``kernel.cu:1164-1176, 1245-1262``): instead of handing the position
 buffer to OpenGL for point-sprite rasterization with additive blending,
 the frame is produced on-device in three steps, all inside one ``jit``:
@@ -12,10 +12,10 @@ the frame is produced on-device in three steps, all inside one ``jit``:
    plane per point-size class (15 px for mass > 0.02, 10 px otherwise).
    ``.at[].add(mode="drop")`` gives GL-style clipping for free; padding
    bodies are masked (only ``real_body_nums`` drawn, ``kernel.cu:1261``).
-3. **Convolve** — one multi-channel ``lax.conv`` with the precomputed
-   ``intensity * alpha`` footprints. Additive blending is linear, so
-   scatter+convolve is mathematically identical to rasterizing every
-   sprite — but it runs on the MXU instead of serializing scatters.
+3. **Convolve** — the precomputed ``intensity * alpha`` footprints,
+   unrolled into static shift-and-add taps. Additive blending is linear,
+   so scatter+convolve is mathematically identical to rasterizing every
+   sprite, without a per-sprite scatter.
 
 The result is a float32 luminance accumulation times the golden sprite
 color — the same image GL produces, without a host round-trip.
@@ -75,18 +75,21 @@ def _bilinear_scatter(
     """Deposit per-class weights at (px, py) over 4 neighbouring pixels,
     returning (C, H, W).
 
-    TPU scatters serialize (~75 ms for 65k bodies at 1024x768), so this is
-    formulated as matmuls instead — SURVEY.md's "hard part (a)". Bilinear
-    splatting is separable: each body's footprint is the outer product of a
-    two-tap row vector and a two-tap column vector, so
+    Formulated as matrix products instead of a scatter-add (SURVEY.md's
+    "hard part (a)"; a float scatter-add would also change the last bits
+    from run to run). Bilinear splatting is separable: each body's
+    footprint is the outer product of a two-tap row vector and a two-tap
+    column vector, so
 
         IMG_c = R_c^T @ Col,   R_c[b, r] = w_cb * bilin_y(b, r),
                                Col[b, x] = bilin_x(b, x)
 
-    and the entire scatter becomes one (H, B) @ (B, W) MXU matmul per class
-    per body chunk (~1e11 flops at N=65k — sub-ms on the MXU, ~100x faster
-    than the scatter it replaces). Out-of-frame taps get zero row/col
-    vectors, reproducing scatter-drop clipping.
+    and the entire scatter becomes one (H, B) @ (B, W) matrix product per
+    class per body chunk. Out-of-frame taps get zero row/col vectors,
+    reproducing scatter-drop clipping. Precision: the default, which on a
+    GPU may run as TF32 (~3 decimal digits in the bilinear weights). That
+    is deliberate: the products only spread brightness over pixels, and
+    no physics reads the image.
     """
     n = px.shape[0]
     n_c = weights.shape[0]
@@ -119,7 +122,8 @@ def _bilinear_scatter(
             jnp.where(cols_iota == ix[:, None], (1.0 - fxc)[:, None], 0.0)
             + jnp.where(cols_iota == ix[:, None] + 1, fxc[:, None], 0.0)
         )                                                  # (B, W)
-        # One MXU contraction per class: (H, B) @ (B, W).
+        # One matrix product per class: (H, B) @ (B, W) (default
+        # precision; TF32 on the GPU is fine for brightness, see above).
         per_class = jnp.stack(
             [
                 jnp.dot((w[c][:, None] * ry).T, cx, preferred_element_type=f32)
@@ -168,11 +172,11 @@ def splat_frame(
 def _conv_sprites(planes: jax.Array, height: int, width: int) -> jax.Array:
     """Convolve the impulse planes with the sprite footprints.
 
-    ``lax.conv`` with batch 1 / 2 channels lowers pathologically on TPU
-    (~42 ms at 1024x768); the footprints are small host-side constants, so
-    unroll the convolution into static shift-and-fma terms instead — zero
-    taps (the discarded sprite corners, ~40% of the square) disappear at
-    trace time and XLA fuses the rest into a few VPU loops (<1 ms).
+    The footprints are small host-side constants, so the convolution is
+    unrolled into static shift-and-fma terms — zero taps (the discarded
+    sprite corners, ~40% of the square) disappear at trace time and XLA
+    fuses the rest into a few elementwise loops (a batch-1, 2-channel
+    ``lax.conv`` is a poor fit for convolution libraries).
     """
     kernels = stacked_footprints()                      # host numpy (2, S, S)
     s = kernels.shape[-1]

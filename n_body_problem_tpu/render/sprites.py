@@ -7,8 +7,8 @@ outside ``dist > 1``, blended additively with ``alpha = smoothstep(0.8,
 0.1, dist)`` under ``glBlendFunc(GL_SRC_ALPHA, GL_ONE)``
 (``kernel.cu:1177``). Additive blending is linear, so the whole raster
 pass is exactly: scatter unit impulses at body pixels, then convolve with
-this fixed ``intensity * alpha`` footprint — which is how the TPU renderer
-turns millions of overlapping sprites into one MXU-friendly convolution.
+this fixed ``intensity * alpha`` footprint — which is how the renderer
+turns millions of overlapping sprites into one convolution.
 
 Point size comes from the vertex shader: 15 px if mass > 0.02 else 10 px
 (``vertex_shader.glsl:19-23``). The shader's second ``BrightColor`` output

@@ -20,15 +20,16 @@ from jax import lax
 from n_body_problem_tpu.config import SimConfig
 from n_body_problem_tpu.ops.integrators import make_integrator, prime_leapfrog
 from n_body_problem_tpu.ops.registry import make_force_fn
+from n_body_problem_tpu.plan import ExecutionPlan, execution_plan
 from n_body_problem_tpu.state import SimState
 
 StepFn = Callable[[SimState], SimState]
 
 
-def make_step_fn(cfg: SimConfig, backend: str | None = None,
+def make_step_fn(cfg: SimConfig, plan: ExecutionPlan | None = None,
                  n: int | None = None) -> StepFn:
     """One simulation step ``state -> state`` (force + integrate, fused)."""
-    force_fn = make_force_fn(cfg, backend, n)
+    force_fn = make_force_fn(cfg, plan, n)
     return make_integrator(cfg.integrator, force_fn, cfg.dt)
 
 
@@ -41,7 +42,7 @@ def run_steps(state: SimState, step_fn: StepFn, n_steps: int) -> SimState:
     return state
 
 
-def make_treecode_run(cfg: SimConfig, backend: str | None = None):
+def make_treecode_run(cfg: SimConfig, plan: ExecutionPlan | None = None):
     """Chunked treecode run: every ``cfg.tree_rebuild_every`` steps,
     re-Z-order the bodies ON DEVICE and rebuild the acceptance lists, then
     scan the steps with both cached.
@@ -50,7 +51,7 @@ def make_treecode_run(cfg: SimConfig, backend: str | None = None):
     decays on the core crossing timescale (measured at N=65k Plummer: max
     open count 451 fresh -> 506 after 8 steps -> 992 after 32), and once
     counts blow past the static near capacity the leaked tiles' multipole
-    errors heat the core and the run explodes (round-2 lesson: a 10k-step
+    errors heat the core and the run explodes (a 10k-step
     Euler run hit dE/E ~ 1e3 without this). Everything happens inside the
     outer scan — zero host round-trips.
 
@@ -67,12 +68,14 @@ def make_treecode_run(cfg: SimConfig, backend: str | None = None):
     )
     from n_body_problem_tpu.utils.morton import device_resort, resort_cols
 
+    plan = plan or execution_plan()
     r = cfg.tree_rebuild_every
     sel = dict(tile=cfg.tree_tile, theta=cfg.tree_theta,
                max_near=cfg.tree_max_near, vip_tiles=cfg.tree_vip_tiles)
     bsel = dict(mac_tau=cfg.tree_mac_tau, eps2=cfg.eps2,
                 compensate=cfg.compensate, **sel)
     kw = dict(eps2=cfg.eps2, compensate=cfg.compensate, G=cfg.G, **sel)
+    fkw = dict(kw, plan=plan)
     flat_cap = cfg.tree_flat_cap
     src = cfg.tree_src_tile
     dt = cfg.dt
@@ -80,11 +83,8 @@ def make_treecode_run(cfg: SimConfig, backend: str | None = None):
 
     if flat_cap > 0:
         # Columnar fast path: the whole run carries twelve (N,) columns
-        # (x y z vx vy vz ax ay az mass eps ids) — never an (N, 3) array.
-        # Measured at N=262k on v5e: the lane-padded (N, 3) layout costs
-        # ~5 ms per elementwise op (the Euler update alone was 21.8
-        # ms/step) and the argsort+gather resort 59 ms; columns cut the
-        # update to ~2 ms and the fused multi-operand-sort resort to 7.6.
+        # (x y z vx vy vz ax ay az mass eps ids) — never an (N, 3) array;
+        # the resort is one fused multi-operand sort of the columns.
         def chunk_cols(cols, length: int, n_real: int):
             cols = resort_cols(cols, n_real)
             x, y, z, vx, vy, vz, ax, ay, az, m, eps, ids = cols
@@ -100,7 +100,7 @@ def make_treecode_run(cfg: SimConfig, backend: str | None = None):
                 def force(px, py, pz):
                     return treecode_acc_hier_cols(
                         px, py, pz, m, aux, src_tile=src,
-                        far_max=cfg.tree_far_max, **kw)
+                        far_max=cfg.tree_far_max, **fkw)
             else:
                 aux = build_tree_flat_cols(x, y, z, m, src_tile=src,
                                            slack=cfg.tree_near_slack,
@@ -108,7 +108,7 @@ def make_treecode_run(cfg: SimConfig, backend: str | None = None):
 
                 def force(px, py, pz):
                     return treecode_acc_flat_cols(px, py, pz, m, aux,
-                                                  src_tile=src, **kw)
+                                                  src_tile=src, **fkw)
 
             if cfg.integrator == "semi_implicit_euler":
                 def body(c, _):
@@ -208,7 +208,7 @@ def make_treecode_run(cfg: SimConfig, backend: str | None = None):
             Every saved frame is un-permuted back to the CALL-ENTRY body
             order (the chunked resort re-orders bodies every rebuild, so
             raw frames would each be in a different Morton order and
-            could not be mapped to body identities — ADVICE r2). Frame
+            could not be mapped to body identities). Frame
             row i is therefore the same body in every frame, exactly as
             on the dense/generic path; ``ids`` still maps the FINAL
             state's slots to entry slots.
@@ -220,8 +220,7 @@ def make_treecode_run(cfg: SimConfig, backend: str | None = None):
             def save_body(c, _):
                 c = advance(c, save_every, n_real)
                 # One multi-operand sort keyed on the ids column (the
-                # sort network applies the permutation; a gather would
-                # be random-access-bound on TPU).
+                # sort applies the permutation to all three columns).
                 _, x0, y0, z0 = lax.sort((c[11], c[0], c[1], c[2]),
                                          num_keys=1)
                 return c, jnp.stack([x0, y0, z0], axis=1)
@@ -319,34 +318,25 @@ class Simulation:
     >>> sim.state.pos
     """
 
-    def __init__(self, cfg: SimConfig, state: SimState, backend: str | None = None):
+    def __init__(self, cfg: SimConfig, state: SimState,
+                 plan: ExecutionPlan | None = None):
         from n_body_problem_tpu.ops.forces import required_padding
-        from n_body_problem_tpu.ops.registry import resolve_solver
         from n_body_problem_tpu.state import pad_state_to
 
-        solver = resolve_solver(cfg.solver, backend, state.n)
+        self.plan = plan = plan or execution_plan()
+        solver = plan.solver(cfg.solver)
+        self.solver = solver
         if solver == "treecode" and cfg.tree_tile == 0:
             # Resolve the auto target-row granularity BEFORE padding (the
             # padding requirement depends on it): 128 on the hierarchical
             # flat path, 32 otherwise.
-            from n_body_problem_tpu.ops.treecode import (
-                CHUNK_LANES as _CL,
-                DEFAULT_HIER_TILE,
-            )
+            # Both granularities pad to a multiple of 256 (required_padding).
+            from n_body_problem_tpu.ops.treecode import DEFAULT_HIER_TILE
+            from n_body_problem_tpu.utils.padding import round_up
 
-            from n_body_problem_tpu.ops.treecode import FAR_ENTRIES as _FE
-
-            hier_flat = (
-                cfg.tree_hier
-                and state.n >= max(_CL, _FE * cfg.tree_src_tile)
-                and (
-                    (cfg.tree_flat_cap == 0
-                     and (backend or jax.default_backend()) == "tpu")
-                    or (cfg.tree_flat_cap > 0 and cfg.tree_far_cap > 0)
-                )
-            )
-            cfg = cfg.replace(
-                tree_tile=DEFAULT_HIER_TILE if hier_flat else 32)
+            hier = plan.tree_variant(
+                cfg, round_up(state.n_real, 256)) == "hier"
+            cfg = cfg.replace(tree_tile=DEFAULT_HIER_TILE if hier else 32)
         elif cfg.tree_tile == 0:
             cfg = cfg.replace(tree_tile=32)
         if solver == "treecode" and not (cfg.morton_sort or cfg.resort_every):
@@ -356,7 +346,7 @@ class Simulation:
             # tree_rebuild_every steps — see make_treecode_run.)
             cfg = cfg.replace(morton_sort=True)
         self.cfg = cfg
-        self.backend = backend
+        self.tree_variant = None
         self.sort_perm = None
         self.state = state
         if cfg.morton_sort or cfg.resort_every > 0:
@@ -368,8 +358,7 @@ class Simulation:
         state = self.state
         need = required_padding(
             solver, state.n, cfg.block_size, cfg.pallas_tile_i,
-            cfg.pallas_tile_j, cfg.pallas_sym_tile, cfg.tree_tile,
-            cfg.tree_src_tile,
+            cfg.pallas_tile_j, cfg.tree_tile, cfg.tree_src_tile,
         )
         if state.n < need:
             state = pad_state_to(state, need)
@@ -383,26 +372,14 @@ class Simulation:
             # initial distribution; margins absorb drift between re-sorts.
             # Static shapes, so they must be fixed pre-trace.
             from n_body_problem_tpu.ops.treecode import (
-                CHUNK_LANES,
                 suggest_flat_cap,
                 suggest_hier,
                 suggest_max_near,
             )
 
-            use_flat = (
-                cfg.tree_flat_cap == 0
-                and (backend or jax.default_backend()) == "tpu"
-                and state.n >= CHUNK_LANES
-                and state.n % cfg.tree_src_tile == 0
-            )
-            from n_body_problem_tpu.ops.treecode import FAR_ENTRIES
-
-            use_hier = (
-                cfg.tree_hier
-                and state.n >= FAR_ENTRIES * cfg.tree_src_tile
-                and (use_flat
-                     or (cfg.tree_flat_cap > 0 and cfg.tree_far_cap > 0))
-            )
+            self.tree_variant = plan.tree_variant(cfg, state.n)
+            use_flat = cfg.tree_flat_cap == 0 and self.tree_variant != "dense"
+            use_hier = self.tree_variant == "hier"
             mac = dict(mac_tau=cfg.tree_mac_tau, eps2=cfg.eps2,
                        compensate=cfg.compensate)
             if use_hier:
@@ -446,10 +423,10 @@ class Simulation:
             self.cfg = cfg
         if cfg.integrator == "leapfrog":
             state = jax.jit(functools.partial(
-                prime_leapfrog, force_fn=make_force_fn(cfg, backend, state.n)
+                prime_leapfrog, force_fn=make_force_fn(cfg, plan, state.n)
             ))(state)
         self.state = state
-        self._step_fn = make_step_fn(cfg, backend, state.n)
+        self._step_fn = make_step_fn(cfg, plan, state.n)
         donate = (0,) if cfg.donate else ()
         run_impl = run_steps
         self._run_returns_ids = solver == "treecode"
@@ -461,7 +438,7 @@ class Simulation:
             # carries a chunked movie variant so long treecode movies get
             # the same resort safety; the dense fallback's movie goes
             # through the generic per-step path (short spans only).
-            run_impl = make_treecode_run(cfg, backend)
+            run_impl = make_treecode_run(cfg, plan)
             if hasattr(run_impl, "movie"):
                 self._jit_tree_movie = jax.jit(
                     run_impl.movie, static_argnums=(1, 2, 5, 6),
@@ -564,7 +541,7 @@ class Simulation:
                     f"re-sorts (locality decay corrupts long runs; "
                     f"measured dE/E ~ 1e3). Use run(), split the span "
                     f"into chunks of <= {limit} steps, or use the flat "
-                    f"treecode path (the TPU default).")
+                    f"treecode path (the GPU default).")
 
     def trajectory(self, n_steps: int, save_every: int = 1) -> jax.Array:
         self._guard_dense_tree_span(n_steps)

@@ -1,11 +1,10 @@
 """Morton (Z-order) spatial sorting.
 
 Reordering bodies along a space-filling curve makes kernel tiles spatially
-compact, which (a) shrinks the dynamic range of the symmetric kernel's
-accumulation panels — tile-centered coordinates then make the bf16x3 MXU
-path accurate — and (b) is the natural prerequisite for any future
-hierarchical solver. Sorting permutes body order; the force physics is
-permutation-invariant, so correctness never depends on it.
+compact, which the treecode's tile summaries and acceptance lists rely on
+and which improves the locality of every tiled solver. Sorting permutes
+body order; the force physics is permutation-invariant, so correctness
+never depends on it.
 """
 
 from __future__ import annotations
@@ -79,9 +78,8 @@ def _spread_bits_10_jnp(v):
 def morton_keys_cols(x, y, z, n_real):
     """(N,) int32 Z-order keys from (N,) coordinate columns, jittable.
 
-    Componentwise on purpose: any (N, 3) intermediate takes TPU's 128-lane
-    tiled layout (42x padding) and was measured ~5x slower end-to-end.
-    Padding bodies (slots >= n_real) get the maximal key so a stable sort
+    Componentwise on purpose: the run loop carries (N,) columns, never
+    (N, 3) arrays. Padding bodies (slots >= n_real) get the maximal key so a stable sort
     keeps them at the end — the layout invariant every kernel relies on.
     """
     import jax
@@ -115,9 +113,8 @@ def resort_cols(cols, n_real):
     sort. ``cols[0:3]`` must be x, y, z.
 
     ``lax.sort`` with trailing operands applies the permutation inside the
-    sort network itself — measured 7.6 ms TOTAL (keys + 8 columns) at
-    N=262k on v5e, vs 59 ms for argsort + separate gathers (random-access
-    bound) on (N, 3) arrays.
+    sort itself, instead of an argsort followed by one gather per
+    column.
     """
     from jax import lax
 

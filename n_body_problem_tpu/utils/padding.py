@@ -1,4 +1,4 @@
-"""Shape-alignment helpers (TPU tiles want multiples of 8/128/256)."""
+"""Shape-alignment helpers (kernel tiles want power-of-two multiples)."""
 
 from __future__ import annotations
 

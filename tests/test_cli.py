@@ -139,14 +139,30 @@ def test_resume_uses_checkpoint_config(tmp_path):
 
 
 def test_auto_solver_resolution():
-    """auto -> symmetric on TPU when N fits the resident cap (VERDICT r1 #7)."""
-    from n_body_problem_tpu.ops.registry import (
-        SYMMETRIC_RESIDENT_CAP,
-        resolve_solver,
-    )
+    """The execution plan, per platform: auto -> the all-pairs kernel and
+    planned hierarchical lists on the GPU, the XLA matmul form and the
+    dense treecode path on the CPU, an error anywhere else."""
+    import pytest
 
-    assert resolve_solver("auto", "tpu", 65536) == "pallas_symmetric"
-    assert resolve_solver("auto", "tpu", None) == "pallas_symmetric"
-    assert resolve_solver("auto", "tpu", SYMMETRIC_RESIDENT_CAP + 1) == "pallas"
-    assert resolve_solver("auto", "cpu", 65536) == "mxu"
-    assert resolve_solver("direct", "tpu", 10) == "direct"
+    from n_body_problem_tpu.config import SimConfig
+    from n_body_problem_tpu.plan import execution_plan
+
+    gpu, cpu = execution_plan("gpu"), execution_plan("cpu")
+    assert gpu.solver("auto") == "pallas" and gpu.near_kernel
+    assert gpu.pair_kernel and gpu.tree_lists and not gpu.interpret
+    assert cpu.solver("auto") == "mxu" and not cpu.near_kernel
+    assert not cpu.pair_kernel and not cpu.tree_lists
+    assert cpu.solver("direct") == gpu.solver("direct") == "direct"
+    with pytest.raises(ValueError, match="GPU kernel"):
+        cpu.solver("pallas")
+    with pytest.raises(ValueError, match="no execution plan"):
+        execution_plan("rocm")
+    assert execution_plan() == cpu          # the test platform
+    tree = SimConfig(solver="treecode")
+    assert gpu.tree_variant(tree, 1 << 20) == "hier"
+    assert gpu.tree_variant(tree.replace(tree_hier=False), 1 << 20) == "flat"
+    assert gpu.tree_variant(tree, 1024) == "dense"        # < CHUNK_LANES
+    assert cpu.tree_variant(tree, 1 << 20) == "dense"
+    assert cpu.tree_variant(tree.replace(tree_flat_cap=64, tree_far_cap=64),
+                            1 << 20) == "hier"
+    assert cpu.tree_variant(tree.replace(tree_flat_cap=64), 1 << 20) == "flat"

@@ -90,7 +90,7 @@ def test_tuned_tree_overrides():
     from n_body_problem_tpu import Simulation
 
     small = tuned_tree_overrides(20480)
-    assert small["tree_src_tile"] == 32  # census-modelled, TPU-measured
+    assert small["tree_src_tile"] == 32  # census-modelled
     cfg = SimConfig(solver="treecode", **small)  # all keys valid fields
     assert SimConfig(**tuned_tree_overrides(1 << 20)) is not None
     sim = Simulation(cfg, models.plummer(4096, seed=0))

@@ -25,10 +25,7 @@ import pytest
 
 from n_body_problem_tpu import SimConfig, Simulation, models
 from n_body_problem_tpu.parallel import make_ring_mesh
-from n_body_problem_tpu.parallel.stream import (
-    make_staged_flat_force,
-    make_staged_force,
-)
+from n_body_problem_tpu.parallel.stream import make_staged_force
 from n_body_problem_tpu.utils.morton import device_resort
 
 
@@ -98,7 +95,7 @@ def test_staged_exact_limit_matches_single_chip(mesh):
                     tree_theta=1e-30, tree_mac_tau=0.0, tree_max_near=2048,
                     tree_near_slack=0, tree_vip_tiles=0,
                     tree_flat_cap=16 * 128, tree_hier=False)
-    force = make_staged_flat_force(cfg, mesh)  # alias coverage
+    force = make_staged_force(cfg, mesh)
     got = np.asarray(jax.jit(force)(st.pos, st.mass))
     want = _single_chip_flat(cfg, st)
     scale = np.abs(want).max()

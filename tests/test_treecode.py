@@ -38,7 +38,7 @@ def test_error_envelope_theta_half():
     m = suggest_max_near(state.pos, state.mass, tile=32, theta=0.5,
                          vip_tiles=32)
     got = treecode_acc(state.pos, state.mass, eps2=EPS2, tile=32, theta=0.5,
-                       max_near=m, vip_tiles=32, use_pallas=False)
+                       max_near=m, vip_tiles=32)
     want = direct_acc(state.pos, state.mass, eps2=EPS2)
     err = _rel_err(got, want)
     assert np.median(err) < 5e-4, f"median {np.median(err):.2e}"
@@ -50,25 +50,38 @@ def test_exact_when_capacity_covers_everything():
     state = _sorted_plummer(2048, seed=2)
     k = 2048 // 32
     got = treecode_acc(state.pos, state.mass, eps2=EPS2, tile=32, theta=0.5,
-                       max_near=k, vip_tiles=0, use_pallas=False)
+                       max_near=k, vip_tiles=0)
     want = direct_acc(state.pos, state.mass, eps2=EPS2)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=1e-4, atol=2e-6)
 
 
 def test_pallas_near_path_matches_xla():
-    """The Pallas near-panel kernel (interpret mode) == the XLA gather
-    path, including the VIP dense sweeps through pallas_block_acc."""
+    """The flat path with the GPU plan's kernels (the Triton near kernel
+    and the all-pairs kernel for both VIP sweeps, run by the Pallas
+    interpreter) == the same path in its plain XLA forms."""
+    import dataclasses
+
+    from n_body_problem_tpu.ops.treecode import (
+        build_tree_flat,
+        suggest_flat_cap,
+        treecode_acc_flat,
+    )
+    from n_body_problem_tpu.plan import execution_plan
+
     state = _sorted_plummer(4096, seed=3)
-    kw = dict(eps2=EPS2, tile=32, theta=0.5, max_near=48, vip_tiles=16)
-    a = treecode_acc(state.pos, state.mass, use_pallas=False, **kw)
-    b = treecode_acc(state.pos, state.mass, use_pallas=True, interpret=True,
-                     **kw)
-    # The Pallas near kernel accumulates on the (emulated) MXU with
-    # tile-centred panels; rounding differs from the broadcast path by a
-    # few 1e-5 — far below the solver's ~1e-3 approximation envelope.
+    kw = dict(tile=32, src_tile=64, theta=0.5, max_near=64, vip_tiles=16)
+    cap = suggest_flat_cap(state.pos, state.mass, tile=32, src_tile=64,
+                           theta=0.5, vip_tiles=16, slack=2)
+    aux = build_tree_flat(state.pos, state.mass, slack=2, flat_cap=cap, **kw)
+    gpu = dataclasses.replace(execution_plan("gpu"), interpret=True)
+    a = treecode_acc_flat(state.pos, state.mass, aux, eps2=EPS2,
+                          plan=execution_plan("cpu"), **kw)
+    b = treecode_acc_flat(state.pos, state.mass, aux, eps2=EPS2, plan=gpu,
+                          **kw)
+    # Same pairs, same float32 math; only the summation order differs.
     np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                               rtol=5e-4, atol=5e-5)
+                               rtol=1e-5, atol=1e-6)
 
 
 def test_suggest_covers_open_counts():
@@ -97,8 +110,7 @@ def test_quadrupole_beats_monopole():
 
     # treecode with probes near only themselves: bar is pure far field.
     got = np.asarray(treecode_acc(pos, mass, eps2=EPS2, tile=32, theta=1.0,
-                                  max_near=1, vip_tiles=0,
-                                  use_pallas=False))[:32]
+                                  max_near=1, vip_tiles=0))[:32]
     # hand monopole of the bar at its com (origin), reference pair math
     c2, gc3 = 0.01, 1e-3
     d = -probes
@@ -127,8 +139,7 @@ def test_isotropic_quadrupole_is_inert():
     s = np.asarray(quad)[0]
     assert abs(s[0] - s[1]) < 1e-6 and abs(s[3]) < 1e-7     # isotropic-ish
     got = np.asarray(treecode_acc(pos, mass, eps2=EPS2, tile=32, theta=1.0,
-                                  max_near=1, vip_tiles=0,
-                                  use_pallas=False))[0]
+                                  max_near=1, vip_tiles=0))[0]
     c2, gc3 = 0.01, 1e-3
     d = np.asarray(com[0]) - probes[0]
     u = 1.0 / np.sqrt(c2 * (d * d).sum() + EPS2)
@@ -142,8 +153,7 @@ def test_vip_tiles_are_exact_both_ways():
     state = _sorted_plummer(2048, seed=6)
     want = np.asarray(direct_acc(state.pos, state.mass, eps2=EPS2))
     got = np.asarray(treecode_acc(state.pos, state.mass, eps2=EPS2, tile=32,
-                                  theta=0.5, max_near=16, vip_tiles=16,
-                                  use_pallas=False))
+                                  theta=0.5, max_near=16, vip_tiles=16))
     # identify VIP bodies the same way the solver does
     _, _, radius, _ = tile_summaries(state.pos, state.mass, 32)
     vip = np.argsort(-np.asarray(radius))[:16]
@@ -211,7 +221,7 @@ def test_flat_path_matches_dense_path():
                            theta=0.5, vip_tiles=16, slack=2)
     aux = build_tree_flat(state.pos, state.mass, slack=2, flat_cap=cap, **kw)
     got = treecode_acc_flat(state.pos, state.mass, aux, eps2=EPS2,
-                            interpret=True, **kw)
+                            **kw)
     want = direct_acc(state.pos, state.mass, eps2=EPS2)
     err = _rel_err(got, want)
     assert np.median(err) < 5e-4, f"median {np.median(err):.2e}"
@@ -219,14 +229,13 @@ def test_flat_path_matches_dense_path():
 
 
 def test_flat_segmented_accumulation_matches_single_call():
-    """The near field segments its scalar prefetch (SMEM budget); targets
-    whose chunks straddle a segment boundary accumulate across calls via
-    the aliased output. A tiny forced budget must reproduce the
-    single-call result exactly."""
-    import jax.numpy as jnp
-
+    """The XLA near field evaluates the work list in blocks of chunks and
+    sums each target row's chunks afterwards; rows whose chunks straddle
+    block boundaries must get exactly what one block gives, and the row
+    sum runs in a fixed order (no scatter-add)."""
     from n_body_problem_tpu.ops.treecode import (
-        _near_field_flat,
+        _near_field_flat_xla,
+        _source_cols,
         build_tree_flat,
         suggest_flat_cap,
     )
@@ -237,22 +246,16 @@ def test_flat_segmented_accumulation_matches_single_call():
                            theta=0.5, vip_tiles=0, slack=2)
     flat_src, chunk_tgt, _, _ = build_tree_flat(
         state.pos, state.mass, slack=2, flat_cap=cap, **kw)
-    k_s = 2048 // 128
-    tiles = jnp.stack(
-        [state.pos[:, 0].reshape(k_s, 128), state.pos[:, 1].reshape(k_s, 128),
-         state.pos[:, 2].reshape(k_s, 128), state.mass.reshape(k_s, 128)],
-        axis=1,
-    )
-    tiles = jnp.concatenate([tiles, jnp.zeros((1, 4, 128), jnp.float32)], 0)
-    args = dict(eps2=EPS2, c2=0.01, tile=32, src_tile=128, interpret=True)
-    one = _near_field_flat(state.pos, tiles, flat_src, chunk_tgt, **args)
-    # a budget of ~1/3 of the chunks forces two mid-row segment boundaries
+    x, y, z = (state.pos[:, i] for i in range(3))
+    src = _source_cols(x, y, z, state.mass, 128)
+    args = dict(eps2=EPS2, c2=0.01, tile=32, src_tile=128, max_chunks=1)
     n_chunks = int(chunk_tgt.shape[0])
-    segd = _near_field_flat(state.pos, tiles, flat_src, chunk_tgt,
-                            seg_budget=(n_chunks // 3 + 1) * (16 + 1),
-                            **args)
-    np.testing.assert_allclose(np.asarray(one), np.asarray(segd),
-                               rtol=1e-6, atol=1e-8)
+    one = _near_field_flat_xla(x, y, z, src, flat_src, chunk_tgt,
+                               block=n_chunks, **args)
+    # a third of the chunks per block forces mid-row block boundaries
+    segd = _near_field_flat_xla(x, y, z, src, flat_src, chunk_tgt,
+                                block=n_chunks // 3 + 1, **args)
+    np.testing.assert_array_equal(np.asarray(one), np.asarray(segd))
 
 
 def test_flat_capacity_overflow_is_consistent():
@@ -292,7 +295,7 @@ def test_flat_capacity_overflow_is_consistent():
     np.testing.assert_array_equal(near_mask, landed)
 
     got = treecode_acc_flat(state.pos, state.mass, aux, eps2=EPS2,
-                            interpret=True, **kw)
+                            **kw)
     want = direct_acc(state.pos, state.mass, eps2=EPS2)
     err = _rel_err(got, want)
     # Degraded (dropped near sources fall back to multipole at close
@@ -345,7 +348,7 @@ def test_mac_criterion_beats_theta_at_matched_cost():
             state.pos, state.mass, slack=2, flat_cap=cap,
             mac_tau=mac_tau, eps2=EPS2, compensate=0.1, **sel)
         got = treecode_acc_flat(state.pos, state.mass, aux, eps2=EPS2,
-                                interpret=True, **sel)
+                                **sel)
         return np.percentile(_rel_err(got, want), 99)
 
 

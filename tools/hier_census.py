@@ -1,9 +1,9 @@
-"""Acceptance census for the hierarchical treecode (CPU, no TPU needed).
+"""Acceptance census for the hierarchical treecode (runs on the CPU).
 
 Counts UNCAPPED near/far evals per target row of the exact production
 acceptance chain (`_hier_open_masks` + `_chain_evals`) on a Morton-
 sorted Plummer sphere — the cost model behind capacity planning and
-the round-3 acceptance decisions (docs/acceptance.md):
+the acceptance decisions in docs/acceptance.md:
 
 - the 65k→1M scaling table (far/row growth, compression vs flat),
 - the wide-halo-row pathology (far_max ≈ K_src) and its fix
@@ -13,7 +13,7 @@ the round-3 acceptance decisions (docs/acceptance.md):
 Usage: python tools/hier_census.py [--src TILE] [N ...]
        (defaults: production src tile, N in {65536, 262144})
 Emits one JSON line per (N, union_coarse) plus a per-level line for
-union=True. Pure CPU: forces the local backend.
+union=True. Counts only (no timing), so it forces the CPU backend.
 """
 from __future__ import annotations
 

@@ -1,11 +1,11 @@
 """Small-N treecode tuning sweep + 4090-baseline crossover scan.
 
-VERDICT r2 #3: the only benchmark the reference ever published is
-1.6 ms/step at N=20,225 on an RTX 4090 (``kernel.cu:73``) — 2.6e11
-directed pairs/s. The treecode's effective throughput grows with N
-(sub-quadratic step time over a quadratic pair count), so there is some
-crossover N* below which the 4090 wins and above which this chip does.
-This tool measures both sides:
+The only benchmark the reference ever published is 1.6 ms/step at
+N=20,225 on an RTX 4090 (``kernel.cu:73``) — 2.6e11 directed pairs/s.
+The treecode's effective throughput grows with N (sub-quadratic step
+time over a quadratic pair count), so there is some crossover N* below
+which the 4090 wins and above which this card does. This tool measures
+both sides:
 
   --mode sweep      config sweep at N=20,480 (dataset-0 padded size):
                     rebuild cadence, VIP budget, source tile, MAC tau,
@@ -13,9 +13,9 @@ This tool measures both sides:
   --mode crossover  default config at N in {20480, 32768, 49152,
                     65536}: brackets N* for BASELINE.md.
 
-Run on the real TPU, serially (each config is its own remote compile —
-give it ~1 min per leg). One JSON line per leg on stdout; a summary
-line at the end.
+Runs on the GPU (bench.py refuses anything else), one leg after the
+other in one process. One JSON line per leg on stdout; a summary line at
+the end.
 """
 from __future__ import annotations
 
@@ -70,7 +70,7 @@ CROSSOVER_NS = [20480, 32768, 49152, 65536]
 def leg(name: str, n: int, steps: int, **cfg_kw) -> dict | None:
     try:
         r = bench_config(n, "treecode", steps=steps, **cfg_kw)
-    except Exception as e:  # pragma: no cover - relay-dependent
+    except Exception as e:
         print(f"tune: leg {name} failed: {e!r}", file=sys.stderr)
         return None
     r["leg"] = name
@@ -85,16 +85,19 @@ def main() -> None:
                     default="sweep")
     ap.add_argument("--steps", type=int, default=256)
     ap.add_argument("--legs", type=str, default="",
-                    help="comma-separated leg names to run (sweep mode); "
-                         "run one leg per process so a relay crash cannot "
-                         "poison the remaining legs' client")
+                    help="comma-separated leg names to run (sweep mode)")
     ap.add_argument("--n", type=int, default=0,
                     help="crossover mode: run this single N only")
     ap.add_argument("--sweep-n", type=int, default=SWEEP_N,
                     help="sweep mode: body count (the same knob legs "
-                         "apply at any N; round-5 mid-N sweeps run them "
-                         "at 65,536+)")
+                         "apply at any N)")
     args = ap.parse_args()
+
+    from bench import device_record
+    from n_body_problem_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
+    print(json.dumps(device_record()))
 
     if args.mode == "sweep":
         picked = ([s for s in SWEEP if s[0] in args.legs.split(",")]
